@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's encrypted FedAvg round once on one CUDA GPU.
+"""Drive the PyTorch port's paths once on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Phases (each raises on failure, so the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the kernel library from csrc/ (nvcc, into build/fhe_fed_tpu_torch/);
+  2. build the kernel library from csrc/ (one nvcc per source, in parallel,
+     into build/fhe_fed_tpu_torch/);
   3. hold every kernel against its plain PyTorch version, bit-exactly, at
-     the main path's shapes, and time both with CUDA events;
-  4. run the main path at the bench configuration (CNN_OriginalFedAvg,
+     the shapes the paths give it, and time both with CUDA events: K1, K3
+     and K4 at the FedAvg shapes, K3 also at 64 clients, K4 also at 11 live
+     limbs, K2 at the rotation path's shapes and a 64-chunk batch, and K2
+     against K1 at N = 8192;
+  4. the FedAvg path at the bench configuration (CNN_OriginalFedAvg,
      1,663,370 parameters x 3 clients, batch 4096 / scale 2^52 / N 8192,
      204 dense chunks) with the committed keys: secret-key encrypt ->
      weighted sum -> decrypt, the public-key encrypt path, and the fused
-     round; check max_err <= 1e-6 against the plaintext weighted average
-     and that every kernel was launched;
-  5. time each phase after a warm-up.
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+     round; max_err <= 1e-6 against the plaintext weighted average;
+  5. the rotation path (BASELINE config 4: N 32768, chain 8 + 1 special
+     prime, Galois keys for r = 1, 2, .., 128): one slot-encoded encrypted
+     vector, one rotation by 1 and EvalSum over 256 slots, slot-decoded
+     within 1e-6 of the plaintext sums;
+  6. the multiply path (BASELINE config 2: N 8192, 4 live limbs, 2048
+     ciphertexts): mult + relinearise + rescale, the first products
+     slot-decoded within 1e-6 of z_a * z_b;
+  7. time each phase after a warm-up.
+Each path runs with the launch counts set to 0 just before it and read just
+after; it fails if a kernel of that path was not launched. With --profile,
+one rotation and one batch multiply are traced with torch.profiler and the
+tables written to DIR. The line before the last is {"kernels": [...]}; the
+last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import json
 import pathlib
 import subprocess
@@ -31,9 +46,10 @@ import numpy as np
 import torch
 
 from fhe_fed_tpu_torch import cuda_lib
-from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas
+from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, ntt as ntt_mod, pallas_ntt
 from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
 from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
+from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -42,6 +58,9 @@ CNN_PARAMS = 1_663_370
 N_CLIENTS = 3
 MAX_ERR = 1e-6
 TIMED_ROUNDS = 10
+ROT_WIDTH = 256           # EvalSum width of the rotation path
+MULT_BATCH = 2048         # ciphertexts per multiply (baseline_configs.py:117)
+MULT_CHECKED = 4          # products slot-decoded and checked
 
 KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "ntt_mxu_fused": ("fhe_fed_tpu_torch/csrc/ntt_mxu.cu",
@@ -52,6 +71,16 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
                            "fhe_fed_tpu/ckks/pallas_agg.py:30"),
     "decode_fused": ("fhe_fed_tpu_torch/csrc/decode_crt.cu",
                      "fhe_fed_tpu/ckks/pallas_decode.py:39"),
+    "ntt_fused": ("fhe_fed_tpu_torch/csrc/ntt_butterfly.cu",
+                  "fhe_fed_tpu/ntt/pallas_ntt.py:157"),
+    "intt_fused": ("fhe_fed_tpu_torch/csrc/ntt_butterfly.cu",
+                   "fhe_fed_tpu/ntt/pallas_ntt.py:195"),
+}
+PATH_KERNELS = {   # the kernels each driven path must launch
+    "fedavg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+               "decode_fused"),
+    "rotation": ("ntt_fused", "intt_fused"),
+    "multiply": ("ntt_mxu_fused", "intt_mxu_fused"),
 }
 
 
@@ -81,29 +110,39 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def _record(recs, name, got, want, fn, plain_fn, reps, plain_reps=3,
+            shape=None):
+    """Raise unless `got` equals `want` bit for bit; else append the
+    kernel's record (`shape`: its input's, by default the output's) with
+    both times."""
+    torch.cuda.synchronize()
+    if got.dtype == torch.float32:
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        same = torch.equal(got, want)
+    err = _max_abs_err(got, want)
+    if not same:
+        raise AssertionError(f"{name} {tuple(got.shape)}: kernel differs from "
+                             f"its plain version (max_abs_err {err})")
+    src, rep = KERNELS[name]
+    recs.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                     shape=list(got.shape if shape is None else shape),
+                     max_abs_err=err,
+                     ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain_fn,
+                                                            plain_reps)))
+
+
 def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
-    """Each kernel against its plain version at the shapes `values`
-    (K, chunks, N) gives the main path; raises on any bit difference."""
+    """Each FedAvg kernel against its plain version at the shapes `values`
+    (K, chunks, N) gives the FedAvg path; raises on any bit difference."""
     K, chunks, n = values.shape
     L = ctx.params.chain_len
     moduli = ctx.params.moduli
-    mt = ctx.mxu.slice_limbs(0, L)
+    mt = ctx.tables.mxu.slice_limbs(0, L)
     recs = []
 
-    def record(name, got, want, fn, plain_fn):
-        torch.cuda.synchronize()
-        if got.dtype == torch.float32:
-            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-        else:
-            same = torch.equal(got, want)
-        err = _max_abs_err(got, want)
-        if not same:
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version (max_abs_err {err})")
-        src, rep = KERNELS[name]
-        recs.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                         shape=list(got.shape), max_abs_err=err,
-                         ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain_fn, 3)))
+    def record(name, got, want, fn, plain_fn, shape=None):
+        _record(recs, name, got, want, fn, plain_fn, reps, shape=shape)
 
     x = uniform_mod_q(gen, (K * chunks, L, n), moduli)
     record("ntt_mxu_fused", mxu_pallas.ntt_mxu_fused(x, mt),
@@ -123,7 +162,8 @@ def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
            ops._weighted_sum_impl(ctx, stacked, wr, ws),
            lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
                                                  moduli[:L]),
-           lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws))
+           lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws),
+           stacked.shape)
 
     # Real decrypt residues of an aggregated round.
     agg = ops.weighted_sum(
@@ -134,7 +174,85 @@ def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
     record("decode_fused", pallas_decode.decode_fused(ctx, dc, res, agg.scale),
            encoding.decode_core(dc, qs, res, agg.scale),
            lambda: pallas_decode.decode_fused(ctx, dc, res, agg.scale),
-           lambda: encoding.decode_core(dc, qs, res, agg.scale))
+           lambda: encoding.decode_core(dc, qs, res, agg.scale), res.shape)
+    return recs
+
+
+def check_repairs(ctx, gen, chunks, n_clients=64, live_ctx=None,
+                  reps=10) -> list[dict]:
+    """K3 with n_clients (> 16) on the FedAvg shape, and K4 at the chain
+    length of `live_ctx` (> 8 live limbs) on encoded values."""
+    recs = []
+    L = ctx.params.chain_len
+    n = ctx.ring_dim
+    moduli = ctx.params.moduli
+    stacked = uniform_mod_q(gen, (n_clients, chunks, 2, L, n), moduli)
+    weights = [1.0 / n_clients] * n_clients
+    w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
+    wr = torch.as_tensor(w_res, device=stacked.device)
+    ws = torch.as_tensor(w_shoup, device=stacked.device)
+    _record(recs, "weighted_sum_fused",
+            pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L]),
+            ops._weighted_sum_impl(ctx, stacked, wr, ws),
+            lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
+                                                  moduli[:L]),
+            lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
+            shape=stacked.shape)
+    del stacked
+
+    live = live_ctx.params.chain_len
+    vals = torch.randn((chunks, live_ctx.ring_dim), generator=gen,
+                       device=gen.device) * 100
+    res = encoding.encode_coeff(live_ctx, vals, live_ctx.params.scale)
+    dc = live_ctx.dec_consts[live - 1]
+    qs = live_ctx.q[:live]
+    scale = live_ctx.params.scale
+    got = pallas_decode.decode_fused(live_ctx, dc, res, scale)
+    _record(recs, "decode_fused", got,
+            encoding.decode_core(dc, qs, res, scale),
+            lambda: pallas_decode.decode_fused(live_ctx, dc, res, scale),
+            lambda: encoding.decode_core(dc, qs, res, scale), reps,
+            shape=res.shape)
+    err = _max_abs_err(got, vals)
+    if not err <= MAX_ERR:
+        raise AssertionError(f"decode at live={live}: max_err {err}")
+    return recs
+
+
+def check_butterfly(rot_ctx, mult_ctx, gen, chunks, reps=10) -> list[dict]:
+    """K2 against its plain version at the rotation path's shapes (the key
+    switch's forward batch over the extended basis and the inverse over the
+    chain) and at a 64-chunk batch; K2 against K1 at N = 8192."""
+    recs = []
+    chain = rot_ctx.params.chain_len
+    n = rot_ctx.ring_dim
+    ext = np.array(list(range(chain)) + [rot_ctx.num_limbs - 1])
+    tb_ext = rot_ctx.tables.take(ext)
+    tb_live = rot_ctx.tables.slice_limbs(0, chain)
+    cases = (
+        ("ntt_fused", (1, chain, chain + 1, n), tb_ext, True),
+        ("intt_fused", (1, chain, n), tb_live, False),
+        ("ntt_fused", (chunks, chain, n), tb_live, True),
+        ("intt_fused", (chunks, chain, n), tb_live, False))
+    for name, shape, tb, fwd in cases:
+        x = uniform_mod_q(gen, shape, tuple(int(q) for q in tb.q))
+        kern = pallas_ntt.ntt_fused if fwd else pallas_ntt.intt_fused
+        plain = ntt_mod.ntt_butterfly if fwd else ntt_mod.intt_butterfly
+        _record(recs, name, kern(x, tb), plain(x, tb),
+                lambda: kern(x, tb), lambda: plain(x, tb), reps)
+
+    # Two independent kernels for one transform: K2 equals K1 bit for bit.
+    L = mult_ctx.params.chain_len
+    tb = mult_ctx.tables.slice_limbs(0, L)
+    x = uniform_mod_q(gen, (chunks, L, mult_ctx.ring_dim),
+                      mult_ctx.params.moduli)
+    for fwd in (True, False):
+        k2 = (pallas_ntt.ntt_fused if fwd else pallas_ntt.intt_fused)(x, tb)
+        k1 = (mxu_pallas.ntt_mxu_fused if fwd
+              else mxu_pallas.intt_mxu_fused)(x, tb.mxu)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"K2 differs from K1 at N=8192 (fwd={fwd})")
     return recs
 
 
@@ -176,7 +294,115 @@ def make_values(n_clients, n_values, chunks, n, seed=0):
     return buf.reshape(n_clients, chunks, n), weights, want.reshape(chunks, n)
 
 
+def rotation_setup(ctx, gen, width, seed=3):
+    """Keys, Galois keys for r = 1, 2, .., width/2, and one encrypted
+    slot-packed vector z (seeded normal x 0.1)."""
+    sk, pk = keys.keygen(ctx, gen)
+    z = np.random.default_rng(seed).standard_normal(
+        SL.num_slots(ctx)) * 0.1
+    ct = ops.encrypt_encoded(ctx, pk, SL.encode_slots(ctx, z[None]), gen,
+                             ctx.params.scale)
+    gks = {}
+    r = 1
+    while r < width:
+        gks[r] = KS.make_galois_key(
+            ctx, sk, KS.galois_element(r, ctx.ring_dim), gen)
+        r <<= 1
+    return sk, z, ct, gks
+
+
+def run_rotation_path(ctx, ct, gks, width):
+    rot = KS.rotate(ctx, ct, 1, gks[1])
+    summed = KS.eval_sum(ctx, ct, gks, width)
+    torch.cuda.synchronize()
+    return rot, summed
+
+
+def check_rotation(ctx, sk, z, rot, summed, width) -> tuple[float, float]:
+    """Slot-decode both results: rot slot j = z[slot_rotation_map[j]];
+    EvalSum slot j = sum_{r < width} z[j + r] (cyclic)."""
+    errs = []
+    for ct, want in (
+            (rot, z[SL.slot_rotation_map(ctx.ring_dim, 1)]),
+            (summed, sum(np.roll(z, -r) for r in range(width)))):
+        got = SL.decode_slots(ctx, ops.decrypt_residues(ctx, sk, ct),
+                              ct.scale)[0]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"rotation path: bad output {got.shape}")
+        errs.append(float(np.max(np.abs(got.real - want))))
+    if not max(errs) <= MAX_ERR:
+        raise AssertionError(f"rotation path: max_err {errs} > {MAX_ERR}")
+    return errs[0], errs[1]
+
+
+def multiply_setup(ctx, pk, gen, batch, seed=4):
+    """`batch` slot-packed ciphertext pairs of seeded normal x 0.1."""
+    rng = np.random.default_rng(seed)
+    za = rng.standard_normal((batch, SL.num_slots(ctx))) * 0.1
+    zb = rng.standard_normal((batch, SL.num_slots(ctx))) * 0.1
+    scale = ctx.params.scale
+    ct_a = ops.encrypt_encoded(ctx, pk, SL.encode_slots(ctx, za), gen, scale)
+    ct_b = ops.encrypt_encoded(ctx, pk, SL.encode_slots(ctx, zb), gen, scale)
+    return za, zb, ct_a, ct_b
+
+
+def run_multiply_path(ctx, ct_a, ct_b, rlk):
+    out = ops.rescale(ctx, KS.mul_ct(ctx, ct_a, ct_b, rlk))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_products(ctx, sk, za, zb, prod, count) -> float:
+    first = ops.Ciphertext(prod.data[:count], prod.scale, prod.level)
+    got = SL.decode_slots(ctx, ops.decrypt_residues(ctx, sk, first),
+                          prod.scale)
+    want = za[:count] * zb[:count]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"multiply path: bad output {got.shape}")
+    err = float(np.max(np.abs(got.real - want)))
+    if not err <= MAX_ERR:
+        raise AssertionError(f"multiply path: max_err {err} > {MAX_ERR}")
+    return err
+
+
+def drive(name, fn):
+    """Run one path with the launch counts at 0 before, read after; raise
+    if a kernel of the path was not launched."""
+    cuda_lib.launches.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(cuda_lib.launches)
+    missing = [k for k in PATH_KERNELS[name] if counts.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{name} path never launched {missing}: "
+                             f"{counts}")
+    return out, counts
+
+
+def profile(out_dir: pathlib.Path, runs: dict) -> None:
+    """torch.profiler over each run once (after a warm-up); the sorted
+    key_averages tables go to out_dir."""
+    from torch.profiler import profile as prof, ProfilerActivity
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            fn()
+            torch.cuda.synchronize()
+        table = p.key_averages().table(sort_by="cuda_time_total",
+                                       row_limit=25)
+        (out_dir / f"profile_{name}.txt").write_text(table)
+        print(f"profile {name}:\n{table}", flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", type=pathlib.Path, default=None,
+                    help="write torch.profiler tables of one rotation and "
+                         "one batch multiply to this directory")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -209,21 +435,77 @@ def main() -> int:
     print(f"config: N={n} limbs={params.num_limbs} chain={params.chain_len} "
           f"chunks={chunks} clients={N_CLIENTS} init_s={init_s:.3f}",
           flush=True)
+    rot_params = P.make_params(batch=16384, scale_bits=52, mult_depth=5,
+                               ring_dim=32768)
+    rot_ctx = P.make_context(rot_params, dev)
+    deep_ctx = P.make_context(P.make_params(batch=4096, scale_bits=52,
+                                            mult_depth=8), dev)
 
     recs = check_kernels(ctx, sk, values, weights, gen)
+    recs += check_repairs(ctx, gen, chunks, 64, deep_ctx)
+    recs += check_butterfly(rot_ctx, ctx, gen, 64)
     for r in recs:
         print(f"kernel {r['name']} {r['shape']}: bit-exact, "
               f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms ({gpu})",
               flush=True)
+    print(f"kernel ntt_fused == ntt_mxu_fused at N={n} (fwd and inv): "
+          f"bit-exact", flush=True)
+    del deep_ctx
 
-    cuda_lib.launches.clear()
-    outs = run_main_path(ctx, sk, pk, values, weights, gen)
-    counts = dict(cuda_lib.launches)
-    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}: {counts}")
+    # FedAvg path (bench.py's round).
+    outs, fed_counts = drive("fedavg", lambda: run_main_path(
+        ctx, sk, pk, values, weights, gen))
     max_err = check_outputs(outs, want, CNN_PARAMS)
-    print(f"main path: max_err {max_err!r} launches {counts}", flush=True)
+    print(f"main path: max_err {max_err!r} launches {fed_counts}", flush=True)
+    del outs
+
+    # Rotation path (config 4).
+    t0 = time.perf_counter()
+    rsk, z, rct, gks = rotation_setup(rot_ctx, gen, ROT_WIDTH)
+    torch.cuda.synchronize()
+    print(f"rotation setup: N={rot_ctx.ring_dim} chain="
+          f"{rot_params.chain_len} limbs={rot_params.num_limbs} galois_keys="
+          f"{sorted(gks)} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    (rot, summed), rot_counts = drive("rotation", lambda: run_rotation_path(
+        rot_ctx, rct, gks, ROT_WIDTH))
+    rot_err, sum_err = check_rotation(rot_ctx, rsk, z, rot, summed,
+                                      ROT_WIDTH)
+    print(f"rotation path: rotate(1) max_err {rot_err!r}, eval_sum("
+          f"{ROT_WIDTH}) max_err {sum_err!r} launches {rot_counts}",
+          flush=True)
+    del rot, summed
+
+    # Multiply path (config 2).
+    t0 = time.perf_counter()
+    rlk = KS.make_relin_key(ctx, sk, gen)
+    za, zb, ct_a, ct_b = multiply_setup(ctx, pk, gen, MULT_BATCH)
+    torch.cuda.synchronize()
+    print(f"multiply setup: N={n} live={params.chain_len} batch={MULT_BATCH} "
+          f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prod, mult_counts = drive("multiply", lambda: run_multiply_path(
+        ctx, ct_a, ct_b, rlk))
+    mult_peak = torch.cuda.max_memory_allocated(dev)
+    mult_err = check_products(ctx, sk, za, zb, prod, MULT_CHECKED)
+    print(f"multiply path: {MULT_CHECKED} products max_err {mult_err!r} "
+          f"launches {mult_counts}", flush=True)
+    del prod
+
+    mult_ms = cuda_ms(lambda: run_multiply_path(ctx, ct_a, ct_b, rlk), 3)
+    print(f"phase mult_relin_rescale_{MULT_BATCH}_ms: {mult_ms:.4f} "
+          f"ct_mults_per_s: {MULT_BATCH / (mult_ms / 1e3):.1f} "
+          f"peak_mem_bytes: {mult_peak} ({gpu})", flush=True)
+    rot_ms = cuda_ms(lambda: KS.rotate(rot_ctx, rct, 1, gks[1]),
+                     TIMED_ROUNDS)
+    sum_ms = cuda_ms(lambda: KS.eval_sum(rot_ctx, rct, gks, ROT_WIDTH), 3)
+    print(f"phase rotate_ms: {rot_ms:.4f} eval_sum_{ROT_WIDTH}_ms: "
+          f"{sum_ms:.4f} ({gpu})", flush=True)
+    if args.profile is not None:
+        profile(args.profile, {
+            "rotate": lambda: KS.rotate(rot_ctx, rct, 1, gks[1]),
+            "mult_relin_rescale": lambda: run_multiply_path(ctx, ct_a, ct_b,
+                                                            rlk)})
+    del ct_a, ct_b, rlk, gks, rct
 
     ct = ops.encrypt_symmetric_stacked(ctx, sk, values, gen)
     agg = ops.weighted_sum(ctx, ct, weights)
@@ -247,8 +529,11 @@ def main() -> int:
     print(f"phase enc+agg+dec_ms: {round_ms:.4f} peak_mem_bytes: {peak} "
           f"({gpu})", flush=True)
 
+    launches = collections.Counter()
+    for c in (fed_counts, rot_counts, mult_counts):
+        launches.update(c)
     for r in recs:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

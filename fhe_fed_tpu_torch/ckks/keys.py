@@ -1,11 +1,13 @@
-"""Key containers and samplers.
+"""Key containers, samplers and key generation.
 
 Keys live in the NTT (evaluation) domain with their Shoup companion words:
 residues int32, companions int64 (rns/modops.py). Every sampler draws from
 an explicit torch.Generator, on the generator's device. The streams differ
 from the JAX package's threefry streams; the distributions are the same.
-Key generation is not ported: keys are loaded (ckks/serial.py) or carried
-over from the JAX package (interop.py).
+`keygen` is a sampling step followed by the deterministic `keygen_core`,
+which takes the samples as arguments, so the core can be held bit-exact
+against fhe_fed_tpu.ckks.keys.keygen fed the same samples. Keys can also be
+loaded (ckks/serial.py) or carried over from the JAX package (interop.py).
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..rns import modops
+from ..ntt import ntt as ntt_mod
+from .params import CkksContext
 
 _CBD_BITS = 20  # centered binomial with variance _CBD_BITS / 2
 
@@ -71,3 +77,31 @@ def lift_signed(coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Small signed coefficients (..., N) -> int32 residues (..., L, N)."""
     c = coeffs.to(torch.int64)[..., None, :]
     return torch.where(c < 0, c + q[:, None], c).to(torch.int32)
+
+
+def keygen_core(ctx: CkksContext, s_coeffs: torch.Tensor, a: torch.Tensor,
+                e_coeffs: torch.Tensor) -> tuple[SecretKey, PublicKey]:
+    """(sk, pk) from a ternary secret `s_coeffs` (N,), a uniform `a`
+    (L, N) in the evaluation domain and a small error `e_coeffs` (N,), over
+    all L limbs (special prime included): s = NTT(s), p1 = a,
+    p0 = -a*s + NTT(e). The two transforms run as one NTT batch."""
+    qb = ctx.q[:, None]
+    s_hat, e_hat = ntt_mod.ntt(
+        lift_signed(torch.stack([s_coeffs, e_coeffs]), ctx.q), ctx.tables)
+    p0 = modops.add_mod(modops.neg_mod(modops.mul_mod(a, s_hat, qb), qb),
+                        e_hat, qb).to(torch.int32)
+    a = a.to(torch.int32)
+    sk = SecretKey(s=s_hat, s_shoup=modops.shoup_tensor(s_hat, qb))
+    pk = PublicKey(p0=p0, p0_shoup=modops.shoup_tensor(p0, qb),
+                   p1=a, p1_shoup=modops.shoup_tensor(a, qb))
+    return sk, pk
+
+
+def keygen(ctx: CkksContext, gen: torch.Generator
+           ) -> tuple[SecretKey, PublicKey]:
+    """Generate (sk, pk) on the generator's device (cc->KeyGen())."""
+    n, L = ctx.ring_dim, ctx.num_limbs
+    s = ternary_coeffs(gen, (n,))
+    a = uniform_mod_q(gen, (L, n), ctx.params.moduli)
+    e = cbd_coeffs(gen, (n,))
+    return keygen_core(ctx, s, a, e)

@@ -6,9 +6,10 @@ sampling step (from an explicit torch.Generator) followed by a
 deterministic core that takes the samples as arguments, so the cores can be
 held bit-exact against the JAX package's own pieces.
 
-Kernels on the path: the NTT (K1, via ntt/ntt.py) in encrypt and decrypt,
-the weighted sum (K3, ckks/pallas_agg.py) and the decode (K4, via
-encoding.decode_coeff). The glue between them is plain PyTorch.
+Kernels on the path: the NTT (K1 or K2, via ntt/ntt.py) in encrypt,
+decrypt and rescale, the weighted sum (K3, ckks/pallas_agg.py) and the
+decode (K4, via encoding.decode_coeff). The glue between them is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def _scale(ctx: CkksContext, scale: float | None) -> float:
 
 
 def _tables(ctx: CkksContext, live: int):
-    return None if ctx.mxu is None else ctx.mxu.slice_limbs(0, live)
+    return ctx.tables.slice_limbs(0, live)
 
 
 def encrypt_symmetric_core(ctx: CkksContext, sk: SecretKey,
@@ -87,16 +88,16 @@ def encrypt_symmetric_stacked(ctx: CkksContext, sk: SecretKey,
     return encrypt_symmetric(ctx, sk, values, gen, scale)
 
 
-def encrypt_core(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
-                 u: torch.Tensor, e0: torch.Tensor, e1: torch.Tensor,
-                 scale: float) -> torch.Tensor:
-    """Public-key RLWE: (b*u + e0 + m, a*u + e1) in the evaluation domain,
-    for ternary `u` and errors `e0`, `e1` of shape (..., N). The four
-    transforms (m, u, e0, e1) run as ONE NTT batch."""
+def encrypt_encoded_core(ctx: CkksContext, pk: PublicKey, pt: torch.Tensor,
+                         u: torch.Tensor, e0: torch.Tensor,
+                         e1: torch.Tensor) -> torch.Tensor:
+    """Public-key RLWE on encoded residues: pt (..., chain, N) int32 in
+    coefficient order -> (b*u + e0 + m, a*u + e1) (..., 2, chain, N) in the
+    evaluation domain, for ternary `u` and errors `e0`, `e1` of shape
+    (..., N). The four transforms (m, u, e0, e1) run as ONE NTT batch."""
     L = ctx.params.chain_len
     q = ctx.q[:L]
     qb = q[:, None]
-    pt = encoding.encode_coeff(ctx, values, scale)
     polys = torch.stack([pt, lift_signed(u, q), lift_signed(e0, q),
                          lift_signed(e1, q)])
     m_hat, u_hat, e0_hat, e1_hat = ntt_mod.ntt(polys, _tables(ctx, L))
@@ -109,6 +110,28 @@ def encrypt_core(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
         modops.mul_mod_shoup(u_hat, pk.p1[:L], pk.p1_shoup[:L], qb),
         e1_hat, qb)
     return torch.stack([c0, c1], dim=-3).to(torch.int32)
+
+
+def encrypt_core(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
+                 u: torch.Tensor, e0: torch.Tensor, e1: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """Public-key RLWE of f32 values (..., N): encode_coeff, then
+    encrypt_encoded_core."""
+    return encrypt_encoded_core(ctx, pk,
+                                encoding.encode_coeff(ctx, values, scale),
+                                u, e0, e1)
+
+
+def encrypt_encoded(ctx: CkksContext, pk: PublicKey, pt: torch.Tensor,
+                    gen: torch.Generator, scale: float) -> Ciphertext:
+    """Public-key encrypt of already-encoded residues (chunks, chain, N),
+    e.g. slot-packed plaintexts from slots.encode_slots."""
+    shape = pt.shape[:-2] + pt.shape[-1:]
+    u = ternary_coeffs(gen, shape)
+    e0 = cbd_coeffs(gen, shape)
+    e1 = cbd_coeffs(gen, shape)
+    return Ciphertext(encrypt_encoded_core(ctx, pk, pt, u, e0, e1),
+                      float(scale), 0)
 
 
 def encrypt(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
@@ -147,6 +170,51 @@ def decrypt_residues(ctx: CkksContext, sk: SecretKey,
 def decrypt(ctx: CkksContext, sk: SecretKey, ct: Ciphertext) -> torch.Tensor:
     """Decrypt to (chunks, N) f32."""
     return encoding.decode_coeff(ctx, decrypt_residues(ctx, sk, ct), ct.scale)
+
+
+def add(ctx: CkksContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+    """EvalAdd: two ciphertexts at the same scale and level."""
+    if a.scale != b.scale or a.level != b.level:
+        raise ValueError("add: ciphertexts differ in scale or level")
+    qb = ctx.q[:a.live_limbs, None]
+    return Ciphertext(modops.add_mod(a.data, b.data, qb).to(torch.int32),
+                      a.scale, a.level)
+
+
+def mul_scalar(ctx: CkksContext, ct: Ciphertext, w: float) -> Ciphertext:
+    """EvalMult(ct, double): the scale grows by the top prime."""
+    live = ct.live_limbs
+    ds = _scalar_scale(ctx, ct.level)
+    res, shoup = encoding.encode_scalar(ctx.params.moduli[:live], w, ds)
+    qb = ctx.q[:live, None]
+    dev = ct.data.device
+    data = modops.mul_mod_shoup(
+        ct.data, torch.as_tensor(res, device=dev)[:, None],
+        torch.as_tensor(shoup, device=dev)[:, None], qb)
+    return Ciphertext(data.to(torch.int32), ct.scale * ds, ct.level)
+
+
+def rescale(ctx: CkksContext, ct: Ciphertext) -> Ciphertext:
+    """Drop the top limb and divide the scale by its prime (RNS rescale):
+    (c - [c]_{q_t}) * q_t^-1 mod q_j on the remaining limbs."""
+    if ct.level >= ctx.params.mult_depth:
+        raise ValueError("rescale: no levels left")
+    live = ct.live_limbs
+    t = live - 1
+    lvl = ctx.params.chain_len - live     # level before the rescale
+    data = ct.data
+    top = ntt_mod.intt(data[..., t:t + 1, :].contiguous(),
+                       ctx.tables.slice_limbs(t, t + 1))    # (..., 2, 1, N)
+    # The top limb's coefficients are < q_t < 2 q_j: one subtraction.
+    qj = ctx.q[:t, None]
+    top = top.to(torch.int64)
+    delta = torch.where(top >= qj, top - qj, top).to(torch.int32)
+    delta_hat = ntt_mod.ntt(delta, ctx.tables.slice_limbs(0, t))
+    inv, inv_shoup = ctx.rescale_inv[lvl]
+    num = modops.sub_mod(data[..., :t, :], delta_hat, qj)
+    out = modops.mul_mod_shoup(num, inv[:, None], inv_shoup[:, None], qj)
+    return Ciphertext(out.to(torch.int32), ct.scale / ctx.params.moduli[t],
+                      ct.level + 1)
 
 
 def _scalar_scale(ctx: CkksContext, level: int) -> float:

@@ -15,7 +15,7 @@ import torch
 
 from .. import cuda_lib
 
-MAX_CLIENTS = 16
+MAX_CLIENTS = 65536       # as ops.modsum_clients, the plain version
 _MAX_LIMBS = 16
 
 
@@ -38,18 +38,22 @@ def weighted_sum_fused(stacked: torch.Tensor, w_res: np.ndarray,
         raise ValueError(f"weighted_sum_fused: live={live}, N={n} unsupported")
     if w_res.shape != (K, live) or w_shoup.shape != (K, live):
         raise ValueError("weighted_sum_fused: weights must be (K, live)")
-    consts = np.zeros((1 + 2 * MAX_CLIENTS, _MAX_LIMBS), dtype=np.uint32)
-    consts[0, :live] = moduli
-    consts[1:1 + K, :live] = w_res
-    consts[1 + MAX_CLIENTS:1 + MAX_CLIENTS + K, :live] = w_shoup
+    qs = np.zeros(_MAX_LIMBS, dtype=np.uint32)
+    qs[:live] = moduli
+    # (K, live, 2) pairs: the weight and the low 32 bits of its Shoup word.
+    # The C entry copies them into w_dev on the launch stream.
+    pairs = np.ascontiguousarray(
+        np.stack([w_res, w_shoup], axis=-1).astype(np.uint32))
+    w_dev = torch.empty(pairs.shape, dtype=torch.int32, device=stacked.device)
     out = torch.empty(stacked.shape[1:], dtype=torch.int32,
                       device=stacked.device)
     per_client = out.numel()
     if per_client == 0:
         return out
     err = cuda_lib.lib().fhe_weighted_sum(
-        out.data_ptr(), stacked.data_ptr(),
-        consts.ctypes.data_as(ctypes.c_void_p), K, live, n, per_client,
+        out.data_ptr(), stacked.data_ptr(), w_dev.data_ptr(),
+        pairs.ctypes.data_as(ctypes.c_void_p),
+        qs.ctypes.data_as(ctypes.c_void_p), K, live, n, per_client,
         cuda_lib.stream_ptr(stacked))
     cuda_lib.check(err, "weighted_sum_fused")
     cuda_lib.launches["weighted_sum_fused"] += 1

@@ -17,13 +17,14 @@ from .. import cuda_lib
 from ..utils import dfloat
 from .params import CkksContext, DecodeConsts, DIGIT_BITS
 
-_MAX_LIVE = 8
-_MAX_DIG = 20
+_MAX_LIVE = 16
+_MAX_DIG = 34             # ndig <= 2 * live + 2
+_WORDS = 2 + 4 * _MAX_LIVE + _MAX_LIVE * _MAX_DIG + 3 * _MAX_DIG + 2
 
 
 def _kernel_consts(ctx: CkksContext, dc: DecodeConsts,
                    scale: float) -> np.ndarray:
-    """The kernel's DecConsts struct as 256 host uint32 words."""
+    """The kernel's DecConsts struct as _WORDS (714) host uint32 words."""
     live, nd = dc.live, dc.ndig
     if not (1 <= live <= _MAX_LIVE and nd <= _MAX_DIG):
         raise ValueError(f"decode_fused: live={live}, ndig={nd} unsupported")
@@ -49,7 +50,7 @@ def _kernel_consts(ctx: CkksContext, dc: DecodeConsts,
         mdig.ravel(), qdig, tw.view(np.uint32), use.astype(np.uint32),
         np.array(dfloat.df_from_f64((2.0 ** e) / scale),
                  dtype=np.float32).view(np.uint32)])
-    assert words.size == 256
+    assert words.size == _WORDS
     return words
 
 

@@ -3,7 +3,8 @@
 Same parameter selection as fhe_fed_tpu.ckks.params (31-bit primes; base
 primes covering scale + headroom, one rescale prime per level, trailing
 key-switch primes), so both packages pick identical moduli. The context
-holds the four-step NTT tables (ntt/mxu.py) on an explicit device.
+holds the NTT tables (ntt/tables.py, with the four-step tables of ntt/mxu.py
+where the ring has a split) on an explicit device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..rns import primes as primes_mod
 from ..rns import modops
-from ..ntt import mxu as mxu_mod
+from ..ntt import tables as ntt_tables
 
 _HEADROOM_BITS = 34
 
@@ -46,8 +47,28 @@ class CkksParams:
         return len(self.moduli) - self.num_special
 
     @property
+    def special_prime(self) -> int:
+        if self.num_special != 1:
+            raise ValueError("key switching needs exactly one special prime")
+        return self.moduli[-1]
+
+    @property
     def scale(self) -> float:
         return float(2.0 ** self.scale_bits)
+
+    @property
+    def rescale_primes(self) -> tuple[int, ...]:
+        return self.moduli[self.num_base:]
+
+    @property
+    def log_q(self) -> float:
+        return sum(math.log2(q) for q in self.moduli)
+
+    def limbs_at_level(self, level: int) -> int:
+        """Live limbs of a ciphertext at `level` (0 = fresh)."""
+        if not 0 <= level <= self.mult_depth:
+            raise ValueError(f"level {level} outside [0, {self.mult_depth}]")
+        return self.chain_len - level
 
 
 def make_params(batch: int = 4096, scale_bits: int = 52,
@@ -115,11 +136,16 @@ class CkksContext:
     enc_pow: torch.Tensor          # (ENCODE_DIGITS, L) 2**(16j) mod q, int64
     enc_pow_shoup: torch.Tensor
     dec_consts: tuple              # tuple[DecodeConsts], index = live - 1
-    mxu: mxu_mod.MxuNttTables | None   # None where mxu_viable is false
+    tables: ntt_tables.NttTables   # all L limbs, special prime included
+    rescale_inv: tuple             # per level: (q_top^-1 mod q_j, Shoup), int64
 
     @property
     def ring_dim(self) -> int:
         return self.params.ring_dim
+
+    @property
+    def num_limbs(self) -> int:
+        return self.params.num_limbs
 
 
 def make_context(params: CkksParams,
@@ -135,6 +161,13 @@ def make_context(params: CkksParams,
     def t(a):
         return torch.as_tensor(a, dtype=torch.int64, device=device)
 
+    rescale = []
+    for level in range(params.mult_depth):
+        top = params.chain_len - 1 - level        # index of the limb dropped
+        inv = np.array([pow(moduli[top] % q, q - 2, q) for q in moduli[:top]],
+                       dtype=np.int64)
+        rescale.append((t(inv), t(modops.shoup_precompute(inv, qs[:top]))))
+
     return CkksContext(
         params=params, device=device,
         q=t(qs),
@@ -143,5 +176,5 @@ def make_context(params: CkksParams,
         enc_pow_shoup=t(modops.shoup_precompute(enc_pow, qs[None, :])),
         dec_consts=tuple(_make_decode_consts(moduli, live)
                          for live in range(1, params.chain_len + 1)),
-        mxu=(mxu_mod.make_mxu_tables(n, moduli, device=device)
-             if mxu_mod.mxu_viable(n) else None))
+        tables=ntt_tables.make_tables(n, moduli, device=device),
+        rescale_inv=tuple(rescale))

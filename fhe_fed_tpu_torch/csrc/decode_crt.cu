@@ -36,11 +36,11 @@
 
 namespace {
 
-constexpr int kMaxLive = 8;
-constexpr int kMaxDig = 20;      // ndig <= 2*live + 2
+constexpr int kMaxLive = 16;
+constexpr int kMaxDig = 34;      // ndig <= 2*live + 2
 constexpr int kThreads = 256;
 
-struct DecConsts {               // host layout: 256 four-byte words
+struct DecConsts {               // host layout: 714 four-byte words
   int32_t live, nd;
   uint32_t q[kMaxLive];
   uint32_t pinv[kMaxLive];       // (Q/q_l)^-1 mod q_l
@@ -206,7 +206,7 @@ int launch(float* out, const int32_t* x, const DecConsts& c, int chunks, int n,
 }  // namespace
 
 // x: (chunks, live, n) int32; out: (chunks, n) float32; consts: host
-// DecConsts with 1 <= live <= 8 and nd <= 2*live + 2.
+// DecConsts with 1 <= live <= 16 and nd <= 2*live + 2.
 extern "C" int fhe_decode_crt(void* out, const void* x, const void* consts,
                               int chunks, int n, void* stream) {
   DecConsts c;
@@ -223,6 +223,14 @@ extern "C" int fhe_decode_crt(void* out, const void* x, const void* consts,
     case 6: return launch<6>(o, xi, c, chunks, n, s);
     case 7: return launch<7>(o, xi, c, chunks, n, s);
     case 8: return launch<8>(o, xi, c, chunks, n, s);
+    case 9: return launch<9>(o, xi, c, chunks, n, s);
+    case 10: return launch<10>(o, xi, c, chunks, n, s);
+    case 11: return launch<11>(o, xi, c, chunks, n, s);
+    case 12: return launch<12>(o, xi, c, chunks, n, s);
+    case 13: return launch<13>(o, xi, c, chunks, n, s);
+    case 14: return launch<14>(o, xi, c, chunks, n, s);
+    case 15: return launch<15>(o, xi, c, chunks, n, s);
+    case 16: return launch<16>(o, xi, c, chunks, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

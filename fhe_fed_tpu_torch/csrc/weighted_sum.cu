@@ -11,9 +11,15 @@
 // output byte written once (K+1 passes of 16 MB per client ciphertext at the
 // bench shape), against 2 Shoup multiplies per 4 bytes. Design: one thread
 // per 4 coefficients with 16-byte loads and stores, neighbouring threads on
-// neighbouring addresses; the client loop runs inside the thread; the
-// (K, live) weights, Shoup words and moduli are a by-value kernel argument,
-// so they sit in the constant bank.
+// neighbouring addresses; the client loop runs inside the thread, so each
+// client's ciphertext is read once, for any K from 1 to 65536; the moduli
+// are a by-value kernel argument (constant bank); the (K, live) weights and
+// the low 32 bits of their Shoup words come in pairs from a small device
+// buffer, one 8-byte load through the read-only cache per client and
+// thread (a warp's threads share the pair, so it is a broadcast). The entry
+// point stages the pairs from host memory with cudaMemcpyAsync on the
+// launch stream: from pageable memory that returns once the bytes are
+// staged, without waiting for the stream, so the host keeps queueing work.
 
 #include <cstdint>
 #include <cstring>
@@ -24,14 +30,12 @@
 
 namespace {
 
-constexpr int kMaxClients = 16;
+constexpr int kMaxClients = 65536;
 constexpr int kMaxLimbs = 16;
 constexpr int kThreads = 256;
 
-struct WsConsts {               // host layout: uint32[1 + 2*kMaxClients][kMaxLimbs]
+struct WsModuli {               // host layout: uint32[kMaxLimbs]
   uint32_t q[kMaxLimbs];
-  uint32_t w[kMaxClients][kMaxLimbs];
-  uint32_t w_shoup[kMaxClients][kMaxLimbs];
 };
 
 __device__ __forceinline__ uint4 scale4(uint4 v, uint32_t w, uint32_t ws,
@@ -42,19 +46,21 @@ __device__ __forceinline__ uint4 scale4(uint4 v, uint32_t w, uint32_t ws,
 
 __global__ void __launch_bounds__(kThreads)
 weighted_sum_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x,
-                    const WsConsts c, int K, int live, int n,
-                    long long per_client) {
+                    const uint2* __restrict__ w, const WsModuli c, int K,
+                    int live, int n, long long per_client) {
   const long long e =
       ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;   // element index
   if (e >= per_client) return;
   const int l = (int)((e / n) % live);
   const uint32_t q = c.q[l];
-  uint4 acc = scale4(__ldg(reinterpret_cast<const uint4*>(x + e)), c.w[0][l],
-                     c.w_shoup[0][l], q);
+  uint2 wk = __ldg(w + l);
+  uint4 acc = scale4(__ldg(reinterpret_cast<const uint4*>(x + e)), wk.x, wk.y,
+                     q);
   for (int k = 1; k < K; ++k) {
+    wk = __ldg(w + (size_t)k * live + l);
     const uint4 t = scale4(
-        __ldg(reinterpret_cast<const uint4*>(x + k * per_client + e)),
-        c.w[k][l], c.w_shoup[k][l], q);
+        __ldg(reinterpret_cast<const uint4*>(x + k * per_client + e)), wk.x,
+        wk.y, q);
     acc = make_uint4(add_mod(acc.x, t.x, q), add_mod(acc.y, t.y, q),
                      add_mod(acc.z, t.z, q), add_mod(acc.w, t.w, q));
   }
@@ -64,15 +70,25 @@ weighted_sum_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x,
 }  // namespace
 
 // x: (K, per_client) int32 with per_client = chunks*2*live*n, n % 4 == 0;
-// out: (per_client,) int32; consts: host WsConsts; 1 <= K <= 16, live <= 16.
-extern "C" int fhe_weighted_sum(void* out, const void* x, const void* consts,
+// out: (per_client,) int32; w_host: host (K, live, 2) uint32 pairs (weight,
+// low 32 bits of its Shoup word), copied into w, a device buffer of the
+// same size; moduli: host WsModuli; 1 <= K <= 65536, 1 <= live <= 16.
+extern "C" int fhe_weighted_sum(void* out, const void* x, void* w,
+                                const void* w_host, const void* moduli,
                                 int K, int live, int n, long long per_client,
                                 void* stream) {
-  WsConsts c;
-  std::memcpy(&c, consts, sizeof(c));
+  if (K < 1 || K > kMaxClients || live < 1 || live > kMaxLimbs)
+    return (int)cudaErrorInvalidValue;
+  WsModuli c;
+  std::memcpy(&c, moduli, sizeof(c));
+  cudaError_t err =
+      cudaMemcpyAsync(w, w_host, (size_t)K * live * sizeof(uint2),
+                      cudaMemcpyHostToDevice, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   const long long vecs = per_client / 4;
   const long long blocks = (vecs + kThreads - 1) / kThreads;
   weighted_sum_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (int32_t*)out, (const int32_t*)x, c, K, live, n, per_client);
+      (int32_t*)out, (const int32_t*)x, (const uint2*)w, c, K, live, n,
+      per_client);
   return (int)cudaGetLastError();
 }

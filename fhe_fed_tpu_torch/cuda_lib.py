@@ -1,10 +1,13 @@
 """Build, load and call the hand-written Hopper kernels in csrc/.
 
-All .cu sources are compiled by nvcc into ONE shared library with a plain C
+Each .cu source is compiled by its own nvcc process, all started together,
+and the objects are linked into ONE shared library with a plain C
 interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <build>/libfhe_fed_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <build>/<source>.o csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libfhe_fed_kernels.so <build>/*.o
 
 The library is built at first use into build/fhe_fed_tpu_torch/<hash>/
 beside the package, keyed by a hash of the sources and the flags, so a
@@ -31,8 +34,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "fhe_fed_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libfhe_fed_kernels.so"
 
 # Launch counts by kernel name. Each wrapper adds one right after its
@@ -49,8 +52,11 @@ _SIGNATURES = {
     # out, x, w1_nk, w2_nk, mid, mid_shoup, limb_consts(host), B, L, n1, n2,
     # forward, stream
     "fhe_ntt_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # out, x, consts(host), K, live, n, per_client, stream
-    "fhe_weighted_sum": (_P, _P, _P, _I, _I, _I, _L, _P),
+    # out, x, tw, consts(host), B, L, n, forward, stream
+    "fhe_ntt_butterfly": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # out, x, weights(device), weights(host), moduli(host), K, live, n,
+    # per_client, stream
+    "fhe_weighted_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
     # out, x, consts(host), chunks, n, stream
     "fhe_decode_crt": (_P, _P, _P, _I, _I, _P),
 }
@@ -73,6 +79,22 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))
+             for c in cmds]
+    failed = []
+    for c, p in procs:
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n"
+                          f"{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into the shared library unless a build of the same
     sources and flags exists; returns its path."""
@@ -85,13 +107,17 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+              for p, o in zip(srcs, objs)])
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)        # atomic: a concurrent build never sees half
     return lib
 

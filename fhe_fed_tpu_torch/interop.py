@@ -13,6 +13,7 @@ import torch
 
 from .ckks.keys import SecretKey, PublicKey
 from .ckks.ops import Ciphertext
+from .ckks.keyswitch import KSwitchKey
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
@@ -52,3 +53,10 @@ def ciphertext_from_numpy(data, scale: float, level: int,
     """u32 ciphertext data (..., chunks, 2, live, N) -> Ciphertext."""
     return Ciphertext(data=_tensor("data", data, device), scale=float(scale),
                       level=int(level))
+
+
+def kswitch_key_from_numpy(b, b_shoup, a, a_shoup,
+                           device="cpu") -> KSwitchKey:
+    """A relinearisation or Galois key's (dnum, L, N) rows -> KSwitchKey."""
+    return KSwitchKey(**context_arrays_from_numpy(
+        dict(b=b, b_shoup=b_shoup, a=a, a_shoup=a_shoup), device))

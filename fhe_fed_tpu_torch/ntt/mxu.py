@@ -182,6 +182,19 @@ class MxuNttTables:
             for f in dataclasses.fields(self)
             if f.name not in ("ring_dim", "n1", "n2")})
 
+    def take(self, idx) -> "MxuNttTables":
+        """Tables of the limbs `idx`, in that order (contiguous copies)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        ti = torch.as_tensor(idx)
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if f.name in ("ring_dim", "n1", "n2"):
+                continue
+            kw[f.name] = (v[idx] if isinstance(v, np.ndarray)
+                          else v.index_select(0, ti.to(v.device)))
+        return dataclasses.replace(self, **kw)
+
 
 def _default_n1(ring_dim: int) -> int:
     return 1 << ((ring_dim.bit_length() - 1) // 2)

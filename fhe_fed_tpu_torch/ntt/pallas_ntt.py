@@ -1,0 +1,67 @@
+"""Wrapper of kernel K2 (csrc/ntt_butterfly.cu): the whole radix-2
+butterfly NTT / iNTT in one pass, the polynomial held in shared memory.
+
+The counterpart of fhe_fed_tpu/ntt/pallas_ntt.py (ntt_fused, intt_fused),
+bit-identical to ntt.ntt_butterfly / ntt.intt_butterfly, its plain
+version. It takes every power-of-two ring from 256 to 32768; a larger ring
+does not fit a block's shared memory and raises. CUDA tensors only: the
+dispatch in ntt/ntt.py sends CPU tensors to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import cuda_lib
+from .tables import NttTables
+
+MIN_RING = 256
+MAX_RING = 32768          # 128 KB of int32 residues in shared memory
+_MAX_LIMBS = 64
+
+
+def _call(x: torch.Tensor, tb: NttTables, forward: bool) -> torch.Tensor:
+    name = "ntt_fused" if forward else "intt_fused"
+    cuda_lib.require_cuda(x, name, torch.int32)
+    L, n = x.shape[-2], x.shape[-1]
+    if n != tb.ring_dim or L != tb.num_limbs:
+        raise ValueError(f"{name}: input {tuple(x.shape)} does not match "
+                         f"tables (L={tb.num_limbs}, N={tb.ring_dim})")
+    if not MIN_RING <= n <= MAX_RING:
+        raise ValueError(f"{name}: N={n} outside [{MIN_RING}, {MAX_RING}]: "
+                         f"the kernel keeps the whole polynomial in shared "
+                         f"memory, which holds at most N={MAX_RING}")
+    if L > _MAX_LIMBS:
+        raise ValueError(f"{name}: L={L} > {_MAX_LIMBS} limbs")
+    tw = tb.tw_fwd if forward else tb.tw_inv
+    cuda_lib.require_cuda(tw, name, torch.int32)
+    if tw.device != x.device:
+        raise ValueError(f"{name}: tables on {tw.device}, input on "
+                         f"{x.device}")
+    consts = np.zeros((3, _MAX_LIMBS), dtype=np.uint32)
+    for row, v in enumerate((tb.q, tb.ninv, tb.ninv_shoup)):
+        consts[row, :L] = v
+    B = x.numel() // (L * n)
+    out = torch.empty_like(x)
+    if B == 0:
+        return out
+    err = cuda_lib.lib().fhe_ntt_butterfly(
+        out.data_ptr(), x.data_ptr(), tw.data_ptr(),
+        consts.ctypes.data_as(ctypes.c_void_p), B, L, n, int(forward),
+        cuda_lib.stream_ptr(x))
+    cuda_lib.check(err, name)
+    cuda_lib.launches[name] += 1
+    return out
+
+
+def ntt_fused(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Forward NTT of int32 residues (..., L, N) on the GPU."""
+    return _call(x, tb, True)
+
+
+def intt_fused(x: torch.Tensor, tb: NttTables) -> torch.Tensor:
+    """Inverse NTT of int32 residues (..., L, N) on the GPU, times N**-1."""
+    return _call(x, tb, False)

@@ -48,6 +48,12 @@ def shoup_precompute(w, q) -> np.ndarray:
     return ((w << np.uint64(32)) // q).astype(np.int64)
 
 
+def shoup_tensor(w: torch.Tensor, q) -> torch.Tensor:
+    """Device side: floor(w * 2**32 / q) for residues w < q < 2**31, as
+    int64 (w * 2**32 < 2**63 is exact). Equals shoup_precompute."""
+    return torch.div(w.to(_I64) << 32, q, rounding_mode="floor")
+
+
 def mul_mod_shoup(x, w, w_shoup, q):
     """x * w mod q for x in [0, q) and a constant w with its Shoup word.
 
@@ -58,3 +64,11 @@ def mul_mod_shoup(x, w, w_shoup, q):
     qhat = (x * w_shoup) >> 32
     r = x * w - qhat * q
     return torch.where(r >= q, r - q, r)
+
+
+def mul_mod(x, y, q):
+    """Generic x * y mod q for x, y in [0, q), q < 2**31: x*y < 2**62 is
+    exact in int64, so torch.remainder gives the canonical residue, the same
+    value as the JAX package's Barrett mul_mod. No Barrett constant mu is
+    needed, so the port keeps none."""
+    return torch.remainder(x.to(_I64) * y, q)

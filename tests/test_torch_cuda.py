@@ -5,9 +5,12 @@ host run them with
     python -m pytest tests/test_torch_cuda.py -q
 
 They repeat chip_smoke.py's phases at smaller sizes, plus the shapes and
-options the main path does not reach (small rings, K > 8, every live-limb
-count of the decode).
+options the paths do not reach (small rings, K > 8, every live-limb count
+of the decode, both NTT kernels on one ring).
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -15,9 +18,12 @@ import torch
 
 import chip_smoke
 from fhe_fed_tpu_torch import cuda_lib
-from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas
+from fhe_fed_tpu_torch.rns import primes
+from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
+from fhe_fed_tpu_torch.ntt import ntt as ntt_mod
 from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
-from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
+from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode, keys
+from fhe_fed_tpu_torch.ckks import keyswitch as KS
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
 
 pytestmark = pytest.mark.cuda
@@ -41,7 +47,6 @@ def _gen(dev, seed=0):
 @pytest.mark.parametrize("n,L,batch", [(256, 3, 3), (512, 2, 19),
                                        (8192, 5, 7)])
 def test_ntt_kernel_matches_plain(dev, n, L, batch):
-    from fhe_fed_tpu_torch.rns import primes
     mod = primes.ntt_primes(n, L)
     mt = mxu.make_mxu_tables(n, mod, device=dev)
     x = uniform_mod_q(_gen(dev, n), (batch, L, n), mod)
@@ -52,7 +57,36 @@ def test_ntt_kernel_matches_plain(dev, n, L, batch):
     assert torch.equal(z, x)
 
 
-@pytest.mark.parametrize("K", [1, 9, 16])
+@pytest.mark.parametrize("n,L,batch", [(256, 3, 5), (4096, 2, 3),
+                                       (32768, 2, 2)])
+def test_butterfly_kernel_matches_plain(dev, n, L, batch):
+    tb = tables.make_tables(n, primes.ntt_primes(n, L), device=dev)
+    x = uniform_mod_q(_gen(dev, n), (batch, L, n), tuple(tb.q))
+    y = pallas_ntt.ntt_fused(x, tb)
+    assert torch.equal(y, ntt_mod.ntt_butterfly(x, tb))
+    z = pallas_ntt.intt_fused(y, tb)
+    assert torch.equal(z, ntt_mod.intt_butterfly(y, tb))
+    assert torch.equal(z, x)
+
+
+def test_butterfly_kernel_matches_k1(dev):
+    """Two independent kernels for one transform, N = 8192."""
+    tb = tables.make_tables(8192, primes.ntt_primes(8192, 5), device=dev)
+    x = uniform_mod_q(_gen(dev, 1), (7, 5, 8192), tuple(tb.q))
+    assert torch.equal(pallas_ntt.ntt_fused(x, tb),
+                       mxu_pallas.ntt_mxu_fused(x, tb.mxu))
+    assert torch.equal(pallas_ntt.intt_fused(x, tb),
+                       mxu_pallas.intt_mxu_fused(x, tb.mxu))
+
+
+def test_butterfly_kernel_refuses_larger_rings(dev):
+    tb = tables.make_tables(65536, primes.ntt_primes(65536, 1))
+    x = torch.zeros((1, 1, 65536), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="32768"):
+        pallas_ntt.ntt_fused(x, tb)
+
+
+@pytest.mark.parametrize("K", [1, 9, 16, 17, 64])
 def test_weighted_sum_kernel_matches_plain(dev, K):
     ctx = P.make_context(P.make_params(batch=128, scale_bits=40,
                                        mult_depth=1, ring_dim=256), dev)
@@ -68,16 +102,18 @@ def test_weighted_sum_kernel_matches_plain(dev, K):
     assert torch.equal(got, want)
 
 
-def test_weighted_sum_kernel_refuses_17_clients(dev):
-    x = torch.zeros((17, 1, 2, 4, 256), dtype=torch.int32, device=dev)
-    w = np.ones((17, 4), dtype=np.int64)
-    with pytest.raises(ValueError, match="1..16"):
-        pallas_agg.weighted_sum_fused(x, w, w, (3, 5, 7, 11))
+def test_weighted_sum_kernel_refuses_more_than_65536_clients(dev):
+    x = torch.zeros((65537, 1, 2, 1, 4), dtype=torch.int32, device=dev)
+    w = np.ones((65537, 1), dtype=np.int64)
+    with pytest.raises(ValueError, match="1..65536"):
+        pallas_agg.weighted_sum_fused(x, w, w, (3,))
 
 
 def test_decode_kernel_matches_plain_every_live(dev):
+    """Every live count from 1 to 16 (chain 16 at mult_depth 13)."""
     ctx = P.make_context(P.make_params(batch=128, scale_bits=40,
-                                       mult_depth=2, ring_dim=256), dev)
+                                       mult_depth=13, ring_dim=256), dev)
+    assert ctx.params.chain_len == 16
     for live in range(1, ctx.params.chain_len + 1):
         dc = ctx.dec_consts[live - 1]
         r = uniform_mod_q(_gen(dev, live), (3, live, 256), ctx.params.moduli)
@@ -88,6 +124,64 @@ def test_decode_kernel_matches_plain_every_live(dev):
             assert torch.equal(torch.isnan(got), nan)
             assert torch.equal(got.view(torch.int32)[~nan],
                                want.view(torch.int32)[~nan])
+
+
+def _to(obj, dev):
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev)
+        for f in dataclasses.fields(obj)})
+
+
+@pytest.mark.parametrize("branch", ["mxu", "butterfly"])
+def test_key_switch_and_rotate_match_cpu(dev, branch):
+    """key_switch and rotate on the card (K1 or K2) equal the CPU result."""
+    params = P.make_params(batch=128, scale_bits=40, mult_depth=2,
+                           ring_dim=256)
+    cpu, gpu = P.make_context(params), P.make_context(params, dev)
+    if branch == "butterfly":
+        cpu = dataclasses.replace(cpu, tables=dataclasses.replace(
+            cpu.tables, mxu=None))
+        gpu = dataclasses.replace(gpu, tables=dataclasses.replace(
+            gpu.tables, mxu=None))
+    gen = torch.Generator().manual_seed(5)
+    sk, pk = keys.keygen(cpu, gen)
+    rlk = KS.make_relin_key(cpu, sk, gen)
+    gk = KS.make_galois_key(cpu, sk, KS.galois_element(3, 256), gen)
+    ct = ops.encrypt(cpu, pk, torch.randn((2, 256), generator=gen), gen)
+    d = ct.data[:, 1]
+    cuda_lib.launches.clear()
+    for want, got in zip(KS.key_switch(cpu, d, rlk),
+                         KS.key_switch(gpu, d.to(dev), _to(rlk, dev))):
+        assert torch.equal(got.cpu(), want)
+    rot = KS.rotate(gpu, dataclasses.replace(ct, data=ct.data.to(dev)), 3,
+                    _to(gk, dev))
+    assert torch.equal(rot.data.cpu(), KS.rotate(cpu, ct, 3, gk).data)
+    names = (("ntt_mxu_fused", "intt_mxu_fused") if branch == "mxu"
+             else ("ntt_fused", "intt_fused"))
+    assert all(cuda_lib.launches[k] > 0 for k in names)
+
+
+def test_rotation_and_multiply_paths_small(dev):
+    """chip_smoke's rotation path at N = 32768 with EvalSum width 16, and
+    its multiply path with 8 ciphertexts."""
+    rot_ctx = P.make_context(P.make_params(batch=16384, scale_bits=52,
+                                           mult_depth=5, ring_dim=32768), dev)
+    gen = _gen(dev, 2)
+    sk, z, ct, gks = chip_smoke.rotation_setup(rot_ctx, gen, 16)
+    (rot, summed), _ = chip_smoke.drive("rotation", lambda: (
+        chip_smoke.run_rotation_path(rot_ctx, ct, gks, 16)))
+    errs = chip_smoke.check_rotation(rot_ctx, sk, z, rot, summed, 16)
+    assert max(errs) <= chip_smoke.MAX_ERR
+
+    ctx = P.make_context(P.make_params(batch=4096, scale_bits=52,
+                                       mult_depth=1), dev)
+    sk, pk = keys.keygen(ctx, gen)
+    rlk = KS.make_relin_key(ctx, sk, gen)
+    za, zb, a, b = chip_smoke.multiply_setup(ctx, pk, gen, 8)
+    prod, _ = chip_smoke.drive("multiply", lambda: (
+        chip_smoke.run_multiply_path(ctx, a, b, rlk)))
+    assert chip_smoke.check_products(ctx, sk, za, zb, prod, 8) <= \
+        chip_smoke.MAX_ERR
 
 
 def test_main_path_small(dev):
@@ -102,7 +196,6 @@ def test_main_path_small(dev):
     recs = chip_smoke.check_kernels(ctx, sk, values, weights, _gen(dev),
                                     reps=1)
     assert [r["max_abs_err"] for r in recs] == [0.0] * 4
-    cuda_lib.launches.clear()
-    outs = chip_smoke.run_main_path(ctx, sk, pk, values, weights, _gen(dev))
-    assert all(cuda_lib.launches[k] > 0 for k in chip_smoke.KERNELS)
+    outs, _ = chip_smoke.drive("fedavg", lambda: chip_smoke.run_main_path(
+        ctx, sk, pk, values, weights, _gen(dev)))
     assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR

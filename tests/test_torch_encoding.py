@@ -140,6 +140,25 @@ def test_decode_negative_and_overflow_cases():
     assert np.isfinite(outs[0][0]).all()
 
 
+def test_decode_core_eleven_limbs_matches_jax():
+    """live = 11 (a fresh ciphertext at mult_depth 8), beyond the eight
+    limbs the decode kernel once took: the plain decode against the JAX
+    decode_core, as int32 bit patterns."""
+    jctx, tctx = _ctxs(mult_depth=8)
+    live = 11
+    assert tctx.params.chain_len == live
+    rng = np.random.default_rng(11)
+    q = np.array(tctx.params.moduli[:live], dtype=np.uint64)
+    res = (rng.integers(0, 1 << 62, size=(2, live, 256), dtype=np.uint64)
+           % q[:, None]).astype(np.uint32)
+    for scale in (2.0 ** 40, 2.0 ** 300):
+        got = T_enc.decode_core(tctx.dec_consts[live - 1], tctx.q[:live],
+                                torch.as_tensor(res.astype(np.int32)), scale)
+        want = J_enc.decode_core(jctx.dec_consts[live - 1], jctx.q[:live],
+                                 jnp.asarray(res), scale)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
 def test_decode_kernel_wrapper_refuses_cpu_tensors():
     _, tctx = _ctxs()
     dc = tctx.dec_consts[3]
