@@ -24,18 +24,33 @@ Phases (each raises on failure, so the script exits non-zero):
   6. the multiply path (BASELINE config 2: N 8192, 4 live limbs, 2048
      ciphertexts): mult + relinearise + rescale, the first products
      slot-decoded within 1e-6 of z_a * z_b;
-  7. time each phase after a warm-up.
+  7. the API path, through the drop-in surface (fed/api.py, fed/fedavg.py)
+     at the bench configuration (batch 4096, 2^52, N 8192, dense): first
+     the known answers on the card (threefry keygen(ctx, 0) equals the
+     committed key files byte for byte, the KAT ciphertext digest), then
+     CKKS helpers loaded from a cryptodir of the committed keys run
+     3 x 1,663,370 values through encrypt -> computeWeightedAverage ->
+     decrypt in the symmetric, public-key and seeded_fresh modes and one
+     mixed FFTS + FFTC cohort (FFTS <= 0.51 x FFTC), fedavg_round fused
+     and staged, a streamed round at BERT-base size (109,482,240 values x
+     3, 14 slices of 1024 chunks), slot mode at 100,000 values, and
+     fhe_fedavg over three CNNOriginalFedAvg state_dicts (FULL, rate 0.1,
+     the two conv layers) loaded back into a module and run forward; every
+     result within 1e-6 of its plaintext reference;
+  8. time each phase after a warm-up.
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
-one rotation and one batch multiply are traced with torch.profiler and the
-tables written to DIR. The line before the last is {"kernels": [...]}; the
-last is {"ok": true, "device": {...}}.
+one rotation, one batch multiply, one API encrypt and its threefry
+sampling step are traced with torch.profiler and the tables written to
+DIR. The line before the last is {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -46,11 +61,14 @@ import numpy as np
 import torch
 
 from fhe_fed_tpu_torch import cuda_lib
+from fhe_fed_tpu_torch import CKKS, SelectivePolicy, fhe_fedavg, plain_fedavg
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, ntt as ntt_mod, pallas_ntt
 from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
 from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
 from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
+from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
+from fhe_fed_tpu_torch.utils import threefry
 
 ROOT = pathlib.Path(__file__).resolve().parent
 KEY_DIR = ROOT / "results" / "bench_keys_headline"
@@ -61,6 +79,16 @@ TIMED_ROUNDS = 10
 ROT_WIDTH = 256           # EvalSum width of the rotation path
 MULT_BATCH = 2048         # ciphertexts per multiply (baseline_configs.py:117)
 MULT_CHECKED = 4          # products slot-decoded and checked
+BERT_PARAMS = 109_482_240  # BERT-base (models/zoo.py), the streamed round
+SLOT_VALUES = 100_000
+API_WEIGHTS = [0.5, 0.2, 0.3]
+FFTS_RATIO = 0.51         # an FFTS blob is at most this share of an FFTC one
+KAT_CT = "e2cfa667b8fc7a5c93eddae47ee6fccf44e1db2db0e24344d88d00412d4f92b6"
+POLICIES = {   # fhe_fedavg policies over a CNNOriginalFedAvg state_dict
+    "full": SelectivePolicy(),
+    "rate_0.1": SelectivePolicy(rate=0.1),
+    "conv_layers": SelectivePolicy(layer_mask={0, 1, 2, 3}),
+}
 
 KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "ntt_mxu_fused": ("fhe_fed_tpu_torch/csrc/ntt_mxu.cu",
@@ -81,6 +109,8 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                "decode_fused"),
     "rotation": ("ntt_fused", "intt_fused"),
     "multiply": ("ntt_mxu_fused", "intt_mxu_fused"),
+    "api": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+            "decode_fused"),
 }
 
 
@@ -365,6 +395,143 @@ def check_products(ctx, sk, za, zb, prod, count) -> float:
     return err
 
 
+def write_cryptodir(params, d: pathlib.Path) -> pathlib.Path:
+    """The cryptodir genCryptoContextAndKeyGen would write for `params`,
+    with the committed key pair."""
+    d.mkdir(parents=True, exist_ok=True)
+    meta = dict(scheme="ckks", batchSize=params.batch,
+                scaleFactorBits=params.scale_bits,
+                mult_depth=params.mult_depth, ring_dim=params.ring_dim,
+                moduli=list(params.moduli), num_base=params.num_base)
+    (d / "cryptocontext.txt").write_text(json.dumps(meta))
+    for name in ("key-private.txt", "key-public.txt"):
+        (d / name).write_bytes((KEY_DIR / name).read_bytes())
+    return d
+
+
+def check_known_answers(ctx) -> None:
+    """On ctx.device: threefry keygen(ctx, 0) is the committed key pair
+    byte for byte, and encrypt_symmetric of linspace(-1, 1, N) under
+    key(2024) has the pinned KAT digest."""
+    sk, pk = keys.keygen(ctx, 0)
+    for blob, name in ((S.serialize_secret_key(ctx, sk), "key-private.txt"),
+                       (S.serialize_public_key(ctx, pk), "key-public.txt")):
+        if blob != (KEY_DIR / name).read_bytes():
+            raise AssertionError(f"keygen(ctx, 0) on {ctx.device} differs "
+                                 f"from {name}")
+    v = torch.as_tensor(np.linspace(-1.0, 1.0, ctx.ring_dim,
+                                    dtype=np.float32)[None], device=ctx.device)
+    ct = ops.encrypt_symmetric(ctx, sk, v, threefry.key(2024, ctx.device))
+    digest = hashlib.sha256(S.serialize_ct(ctx, ct)).hexdigest()
+    if digest != KAT_CT:
+        raise AssertionError(f"KAT ciphertext digest {digest} on "
+                             f"{ctx.device}")
+
+
+def api_helpers(cryptodir: pathlib.Path, dev) -> dict:
+    """One CKKS helper per mode, loaded from `cryptodir`; the coefficient
+    modes dense-packed as the bench is."""
+    kw = dict(batchSize=4096, scaleFactorBits=52, cryptodir=str(cryptodir),
+              device=dev)
+    hs = {"symmetric": CKKS(dense_pack=True, symmetric=True, seed=1, **kw),
+          "public_key": CKKS(dense_pack=True, seed=2, **kw),
+          "seeded_fresh": CKKS(dense_pack=True, seeded_fresh=True, seed=3,
+                               **kw),
+          "slots": CKKS(packing="slots", seed=4, **kw)}
+    for h in hs.values():
+        h.loadCryptoParams()
+    return hs
+
+
+def api_vectors(n_values: int, seed: int):
+    """N_CLIENTS seeded flat f32 vectors (normal x 0.1) and their f64
+    weighted average under API_WEIGHTS."""
+    rng = np.random.default_rng(seed)
+    vecs = [rng.standard_normal(n_values, dtype=np.float32) * np.float32(0.1)
+            for _ in range(N_CLIENTS)]
+    want = np.zeros(n_values)
+    for w, v in zip(API_WEIGHTS, vecs):
+        want += w * v.astype(np.float64)
+    return vecs, want
+
+
+def cnn_state_dicts() -> list:
+    out = []
+    for s in range(N_CLIENTS):
+        torch.manual_seed(s)
+        out.append(CNNOriginalFedAvg().state_dict())
+    return out
+
+
+def run_api_path(hs: dict, cnn_vecs, bert_vecs, slot_vecs,
+                 state_dicts) -> tuple[dict, dict]:
+    """Every API entry once; returns ({result: decrypted output},
+    {mode: one client's blob})."""
+    n = cnn_vecs[0].size
+    w = API_WEIGHTS
+    outs, blobs = {}, {}
+    for mode in ("symmetric", "public_key", "seeded_fresh"):
+        h = hs[mode]
+        b = [h.encrypt(v) for v in cnn_vecs]
+        blobs[mode] = b
+        outs[f"bytes_{mode}"] = h.decrypt(h.computeWeightedAverage(b, w), n)
+    h = hs["seeded_fresh"]
+    mixed = blobs["seeded_fresh"][:2] + blobs["symmetric"][2:]
+    outs["bytes_mixed"] = h.decrypt(h.computeWeightedAverage(mixed, w), n)
+    h = hs["symmetric"]
+    outs["round_fused"] = h.fedavg_round(cnn_vecs, w)
+    outs["round_staged"] = h.fedavg_round(cnn_vecs, w, fused=False)
+    outs["round_streamed"] = h.fedavg_round(bert_vecs, w)
+    s = hs["slots"]
+    outs["bytes_slots"] = s.decrypt(s.computeWeightedAverage(
+        [s.encrypt(v) for v in slot_vecs], w), slot_vecs[0].size)
+    for name, policy in POLICIES.items():
+        outs[f"fhe_fedavg_{name}"] = fhe_fedavg(h, state_dicts, w, policy)
+    torch.cuda.synchronize()
+    return outs, {m: b[0] for m, b in blobs.items()}
+
+
+def check_api(outs: dict, wants: dict, blobs: dict, state_dicts,
+              dev) -> dict:
+    """Each result finite, of the right shape and within MAX_ERR of its
+    plaintext reference: wants["bert"] for the streamed round,
+    wants["slots"] for slot mode, wants["cnn"] for the other vectors,
+    plain_fedavg for the state_dicts. The seeded blob is at most FFTS_RATIO
+    of the full one; each fhe_fedavg result loads into a module whose
+    forward on a seeded batch is finite."""
+    plain = plain_fedavg(state_dicts, API_WEIGHTS)
+    ref = {"round_streamed": "bert", "bytes_slots": "slots"}
+    errs = {}
+    for name, got in outs.items():
+        if name.startswith("fhe_fedavg_"):
+            if list(got) != list(plain):
+                raise AssertionError(f"{name}: keys {list(got)}")
+            got_f = np.concatenate([got[k].numpy().ravel() for k in got])
+            want = np.concatenate([plain[k].numpy().ravel() for k in plain])
+            model = CNNOriginalFedAvg().to(dev)
+            model.load_state_dict(got)
+            x = torch.randn((8, 28, 28), generator=torch.Generator(
+                device=dev).manual_seed(8), device=dev)
+            with torch.no_grad():
+                logits = model(x)
+            if tuple(logits.shape) != (8, 10) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: forward gave "
+                                     f"{tuple(logits.shape)} non-finite")
+        else:
+            got_f, want = got, wants[ref.get(name, "cnn")]
+        if got_f.shape != want.shape or not np.isfinite(got_f).all():
+            raise AssertionError(f"{name}: bad output {got_f.shape}")
+        errs[name] = float(np.max(np.abs(got_f.astype(np.float64) - want)))
+    bad = {k: e for k, e in errs.items() if not e <= MAX_ERR}
+    if bad:
+        raise AssertionError(f"API path: max_err above {MAX_ERR}: {bad}")
+    ratio = len(blobs["seeded_fresh"]) / len(blobs["symmetric"])
+    if not ratio <= FFTS_RATIO:
+        raise AssertionError(f"FFTS / FFTC bytes {ratio} > {FFTS_RATIO}")
+    return dict(errs, ffts_over_fftc=ratio)
+
+
 def drive(name, fn):
     """Run one path with the launch counts at 0 before, read after; raise
     if a kernel of the path was not launched."""
@@ -379,11 +546,14 @@ def drive(name, fn):
     return out, counts
 
 
-def profile(out_dir: pathlib.Path, runs: dict) -> None:
+def profile(out_dir: pathlib.Path, runs: dict) -> dict:
     """torch.profiler over each run once (after a warm-up); the sorted
-    key_averages tables go to out_dir."""
+    key_averages tables go to out_dir. Returns each run's device time, the
+    sum of its kernels' self device time, in microseconds."""
+    from torch.autograd import DeviceType
     from torch.profiler import profile as prof, ProfilerActivity
     out_dir.mkdir(parents=True, exist_ok=True)
+    device_us = {}
     for name, fn in runs.items():
         fn()
         torch.cuda.synchronize()
@@ -391,17 +561,22 @@ def profile(out_dir: pathlib.Path, runs: dict) -> None:
                               ProfilerActivity.CUDA]) as p:
             fn()
             torch.cuda.synchronize()
-        table = p.key_averages().table(sort_by="cuda_time_total",
-                                       row_limit=25)
+        events = p.key_averages()
+        device_us[name] = sum(e.self_device_time_total for e in events
+                              if e.device_type == DeviceType.CUDA)
+        table = events.table(sort_by="cuda_time_total", row_limit=25)
         (out_dir / f"profile_{name}.txt").write_text(table)
-        print(f"profile {name}:\n{table}", flush=True)
+        print(f"profile {name}: device_us {device_us[name]:.1f}\n{table}",
+              flush=True)
+    return device_us
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=pathlib.Path, default=None,
-                    help="write torch.profiler tables of one rotation and "
-                         "one batch multiply to this directory")
+                    help="write torch.profiler tables of one rotation, one "
+                         "batch multiply, one API encrypt and its threefry "
+                         "sampling to this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -528,9 +703,84 @@ def main() -> int:
                                       "decrypt"))
     print(f"phase enc+agg+dec_ms: {round_ms:.4f} peak_mem_bytes: {peak} "
           f"({gpu})", flush=True)
+    del ct, agg
+
+    # API path (fed/api.py, fed/fedavg.py) at the bench configuration.
+    t0 = time.perf_counter()
+    check_known_answers(ctx)
+    print(f"known answers on {dev}: keygen(ctx, 0) == committed key files, "
+          f"KAT ciphertext sha256 {KAT_CT}: ok", flush=True)
+    hs = api_helpers(write_cryptodir(params, ROOT / "build" / "api_cryptodir"),
+                     dev)
+    cnn_vecs, cnn_want = api_vectors(CNN_PARAMS, 10)
+    bert_vecs, bert_want = api_vectors(BERT_PARAMS, 11)
+    slot_vecs, slot_want = api_vectors(SLOT_VALUES, 12)
+    sds = cnn_state_dicts()
+    bert_chunks = -(-BERT_PARAMS // n)
+    print(f"api setup: clients={N_CLIENTS} cnn={CNN_PARAMS} bert={BERT_PARAMS}"
+          f" ({bert_chunks} chunks, {-(-bert_chunks // 1024)} slices of 1024)"
+          f" slots={SLOT_VALUES} setup_s={time.perf_counter() - t0:.3f}",
+          flush=True)
+    (api_outs, blobs), api_counts = drive("api", lambda: run_api_path(
+        hs, cnn_vecs, bert_vecs, slot_vecs, sds))
+    api_errs = check_api(api_outs, dict(cnn=cnn_want, bert=bert_want,
+                                        slots=slot_want), blobs, sds, dev)
+    print(f"api path: max_err {json.dumps(api_errs)} launches {api_counts}",
+          flush=True)
+    del api_outs, bert_want
+
+    h, hseed = hs["symmetric"], hs["seeded_fresh"]
+    cohort = [h.encrypt(v) for v in cnn_vecs]
+    agg_blob = h.computeWeightedAverage(cohort, API_WEIGHTS)
+    sct = S.deserialize_seeded_ct(ctx, hseed.encrypt(cnn_vecs[0]))
+    one = h.pack_cohort(cnn_vecs[:1])[0]
+    key = threefry.key(5, dev)
+    one_ct = ops.encrypt_symmetric(ctx, sk, one, key)
+    api_phases = {
+        "api_serialize_ct": lambda: S.serialize_ct(ctx, one_ct),
+        "api_deserialize_ct": lambda: S.deserialize_ct(ctx, cohort[0]),
+        "api_encrypt_per_client": lambda: h.encrypt(cnn_vecs[0]),
+        "api_encrypt_seeded_per_client": lambda: hseed.encrypt(cnn_vecs[0]),
+        "api_encrypt_publickey_per_client": lambda: hs["public_key"].encrypt(
+            cnn_vecs[0]),
+        "api_computeWeightedAverage": lambda: h.computeWeightedAverage(
+            cohort, API_WEIGHTS),
+        "api_decrypt": lambda: h.decrypt(agg_blob, CNN_PARAMS),
+        "api_round_fused": lambda: h.fedavg_round(cnn_vecs, API_WEIGHTS),
+        "api_round_staged": lambda: h.fedavg_round(cnn_vecs, API_WEIGHTS,
+                                                   fused=False),
+        "ffts_expand": lambda: ops.expand_seeded(ctx, sct),
+    }
+    for k, fn in api_phases.items():
+        print(f"phase {k}_ms: {cuda_ms(fn, 3):.4f} ({gpu})", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stream_ms = cuda_ms(lambda: h.fedavg_round(bert_vecs, API_WEIGHTS), 1)
+    print(f"phase api_round_streamed_bert_ms: {stream_ms:.4f} peak_mem_bytes: "
+          f"{torch.cuda.max_memory_allocated(dev)} ({gpu})", flush=True)
+    del bert_vecs
+
+    # Threefry sampling against the encrypt it feeds (device side).
+    enc_ms = cuda_ms(lambda: ops.encrypt_symmetric(ctx, sk, one, key),
+                     TIMED_ROUNDS)
+    samp_ms = cuda_ms(lambda: ops._sym_samples(ctx, key, one.shape),
+                      TIMED_ROUNDS)
+    cohort_tf_ms = cuda_ms(lambda: ops.encrypt_symmetric_stacked(
+        ctx, sk, values, key), TIMED_ROUNDS)
+    print(f"phase encrypt_threefry_ms: {enc_ms:.4f} threefry_sampling_ms: "
+          f"{samp_ms:.4f} share: {samp_ms / enc_ms:.4f}; encrypt_cohort "
+          f"threefry_ms: {cohort_tf_ms:.4f} generator_ms: "
+          f"{times['encrypt_cohort']:.4f} ({gpu})", flush=True)
+    if args.profile is not None:
+        us = profile(args.profile, {
+            "api_encrypt": lambda: ops.encrypt_symmetric(ctx, sk, one, key),
+            "threefry_sampling": lambda: ops._sym_samples(ctx, key,
+                                                          one.shape)})
+        print(f"profile threefry share of the API encrypt's device time: "
+              f"{us['threefry_sampling'] / us['api_encrypt']:.4f} ({gpu})",
+              flush=True)
 
     launches = collections.Counter()
-    for c in (fed_counts, rot_counts, mult_counts):
+    for c in (fed_counts, rot_counts, mult_counts, api_counts):
         launches.update(c)
     for r in recs:
         r["launches"] = launches[r["name"]]

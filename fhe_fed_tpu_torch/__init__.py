@@ -1,13 +1,30 @@
 """PyTorch / CUDA port of fhe_fed_tpu for one NVIDIA Hopper GPU.
 
-Ported so far: the encrypted FedAvg round (context and keys, encrypt
-secret-key and public-key, the weighted sum, decrypt, the fused round, the
-FFTC / FFTK wire formats), key generation, key switching (ct x ct
-multiply with relinearisation, Galois rotations, EvalSum), rescale and
-slot packing. Module paths mirror the
+Ported so far: the drop-in `CKKS` surface (bytes methods, cohort methods,
+the streamed `fedavg_round`; options dense_pack, symmetric, seeded_fresh,
+packing="slots"; a `device` argument) and the pytree FedAvg with
+selective encryption (`fhe_fedavg`, `plain_fedavg`), on the RNS / NTT /
+CKKS engine: context and keys, encrypt (secret-key, public-key, seeded),
+the weighted sum, decrypt, the fused round, key switching (ct x ct
+multiply with relinearisation, Galois rotations, EvalSum), rescale, slot
+packing, the FFTC / FFTP / FFTS / FFTK wire formats, and the threefry PRNG
+of jax.random (utils/threefry.py), so a seed gives the JAX package's bytes.
+One model: CNN_OriginalFedAvg (models/basic.py). Module paths mirror the
 JAX package's. Residues are stored as non-negative int32 (every modulus is
 below 2**31); Shoup companion words are int64 (rns/modops.py).
 
 A tensor on the CPU takes each kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel (csrc/) or raises.
 """
+
+from .fed.api import CKKS
+from .fed.scheme import Scheme, get_scheme, register_scheme
+from .fed.fedavg import (fhe_fedavg, plain_fedavg, flatten_params,
+                         unflatten_params, SelectivePolicy)
+from .ckks.params import make_params, make_context
+
+__all__ = [
+    "CKKS", "Scheme", "get_scheme", "register_scheme",
+    "fhe_fedavg", "plain_fedavg", "flatten_params", "unflatten_params",
+    "SelectivePolicy", "make_params", "make_context",
+]

@@ -1,23 +1,33 @@
 """Key containers, samplers and key generation.
 
 Keys live in the NTT (evaluation) domain with their Shoup companion words:
-residues int32, companions int64 (rns/modops.py). Every sampler draws from
-an explicit torch.Generator, on the generator's device. The streams differ
-from the JAX package's threefry streams; the distributions are the same.
+residues int32, companions int64 (rns/modops.py). Two families of samplers,
+with the same distributions:
+
+  * `uniform_mod_q`, `ternary_coeffs`, `cbd_coeffs` draw from an explicit
+    torch.Generator, on the generator's device (the port's own streams);
+  * the `*_tf` forms and `uniform_mod_q_xor2` draw from threefry keys
+    (utils/threefry.py) on the key's device and follow
+    fhe_fed_tpu.ckks.keys line for line, so they give the JAX package's
+    samples bit for bit; a batch of keys (..., 2) samples in one pass.
+
 `keygen` is a sampling step followed by the deterministic `keygen_core`,
-which takes the samples as arguments, so the core can be held bit-exact
-against fhe_fed_tpu.ckks.keys.keygen fed the same samples. Keys can also be
-loaded (ckks/serial.py) or carried over from the JAX package (interop.py).
+which takes the samples as arguments. Given an int seed it splits
+threefry key(seed) as the JAX package's keygen does and reproduces its
+keys byte for byte. Keys can also be loaded (ckks/serial.py) or carried
+over from the JAX package (interop.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
+from ..utils import threefry
 from .params import CkksContext
 
 _CBD_BITS = 20  # centered binomial with variance _CBD_BITS / 2
@@ -73,6 +83,64 @@ def cbd_coeffs(gen: torch.Generator, shape) -> torch.Tensor:
     return (_popcount20(a) - _popcount20(b)).to(torch.int32)
 
 
+def _reduce_bits_mod_q(hi: torch.Tensor, lo: torch.Tensor,
+                       moduli) -> torch.Tensor:
+    """(hi * 2**32 + lo) mod q_l for uniform 32-bit words (..., L, n) held
+    in int64; bias < 2**-33. Both words are first brought below q (at most
+    three subtractions each, every q > 2**30): mul_mod_shoup is exact in
+    int64 only for x < 2**31, and [hi]_q * 2**32 mod q is the canonical
+    residue the JAX package's u32 Shoup multiply gives for the full word."""
+    L = hi.shape[-2]
+    qs = np.asarray(moduli[:L], dtype=np.int64)
+    p32 = (1 << 32) % qs
+
+    def col(a):
+        return torch.as_tensor(a, device=hi.device)[:, None]
+
+    q = col(qs)
+    hi_red = modops.mul_mod_shoup(
+        modops.reduce_u32(hi, q), col(p32),
+        col(modops.shoup_precompute(p32, qs)), q)
+    return modops.add_mod(hi_red, modops.reduce_u32(lo, q), q)
+
+
+def uniform_mod_q_tf(key: torch.Tensor, shape, moduli) -> torch.Tensor:
+    """Threefry form of uniform_mod_q: residues (*key batch, *shape) in
+    [0, q_l), int32, for shape (..., L, n); 64 bits per element,
+    r = (hi * 2**32 + lo) mod q."""
+    k1, k2 = threefry.split(key).unbind(-2)
+    return _reduce_bits_mod_q(threefry.bits(k1, shape),
+                              threefry.bits(k2, shape),
+                              moduli).to(torch.int32)
+
+
+def uniform_mod_q_xor2(key_a: torch.Tensor, key_b: torch.Tensor, shape,
+                       moduli) -> torch.Tensor:
+    """uniform_mod_q_tf from the XOR of two independently keyed threefry
+    streams: a key pair collides only when both keys do (a 128-bit seed
+    space). The a-stream of the seed-compressed ciphertext (ckks/ops.py)."""
+    k1a, k2a = threefry.split(key_a).unbind(-2)
+    k1b, k2b = threefry.split(key_b).unbind(-2)
+    hi = threefry.bits(k1a, shape).bitwise_xor_(threefry.bits(k1b, shape))
+    lo = threefry.bits(k2a, shape).bitwise_xor_(threefry.bits(k2b, shape))
+    return _reduce_bits_mod_q(hi, lo, moduli).to(torch.int32)
+
+
+def ternary_coeffs_tf(key: torch.Tensor, shape) -> torch.Tensor:
+    """Threefry form of ternary_coeffs: bits % 3 - 1, int32."""
+    return (threefry.bits(key, shape) % 3 - 1).to(torch.int32)
+
+
+def cbd_coeffs_tf(key: torch.Tensor, shape) -> torch.Tensor:
+    """Threefry form of cbd_coeffs: popcount(a) - popcount(b) over the low
+    20 bits of two words drawn from split(key)."""
+    k1, k2 = threefry.split(key).unbind(-2)
+    mask = (1 << _CBD_BITS) - 1
+    a = threefry.bits(k1, shape).bitwise_and_(mask)
+    b = threefry.bits(k2, shape).bitwise_and_(mask)
+    return (_popcount20(a) - _popcount20(b)).to(torch.int32)
+
+
 def lift_signed(coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Small signed coefficients (..., N) -> int32 residues (..., L, N)."""
     c = coeffs.to(torch.int64)[..., None, :]
@@ -97,11 +165,21 @@ def keygen_core(ctx: CkksContext, s_coeffs: torch.Tensor, a: torch.Tensor,
     return sk, pk
 
 
-def keygen(ctx: CkksContext, gen: torch.Generator
+def keygen(ctx: CkksContext, rng: torch.Generator | int
            ) -> tuple[SecretKey, PublicKey]:
-    """Generate (sk, pk) on the generator's device (cc->KeyGen())."""
+    """Generate (sk, pk) (cc->KeyGen()). `rng` is a torch.Generator (keys
+    on its device) or an int seed: threefry key(seed) on ctx.device, split
+    into (s, a, e) keys as fhe_fed_tpu.ckks.keys.keygen does, so the keys
+    equal the JAX package's keygen(ctx, seed) byte for byte."""
     n, L = ctx.ring_dim, ctx.num_limbs
-    s = ternary_coeffs(gen, (n,))
-    a = uniform_mod_q(gen, (L, n), ctx.params.moduli)
-    e = cbd_coeffs(gen, (n,))
+    if isinstance(rng, torch.Generator):
+        s = ternary_coeffs(rng, (n,))
+        a = uniform_mod_q(rng, (L, n), ctx.params.moduli)
+        e = cbd_coeffs(rng, (n,))
+    else:
+        k_s, k_a, k_e = threefry.split(
+            threefry.key(rng, ctx.device), 3).unbind(-2)
+        s = ternary_coeffs_tf(k_s, (n,))
+        a = uniform_mod_q_tf(k_a, (L, n), ctx.params.moduli)
+        e = cbd_coeffs_tf(k_e, (n,))
     return keygen_core(ctx, s, a, e)

@@ -2,9 +2,13 @@
 
 A ciphertext is int32 residues (..., chunks, 2, live, N) in the evaluation
 domain (bit-reversed order), as in fhe_fed_tpu.ckks.ops. Each encrypt is a
-sampling step (from an explicit torch.Generator) followed by a
-deterministic core that takes the samples as arguments, so the cores can be
-held bit-exact against the JAX package's own pieces.
+sampling step followed by a deterministic core that takes the samples as
+arguments. The step draws from `rng`, which is either
+
+  * a torch.Generator: the port's own streams, or
+  * a threefry key tensor (2,) (utils/threefry.py): the key splits of the
+    JAX function of the same name, line for line, so the ciphertext is
+    the JAX package's bit for bit.
 
 Kernels on the path: the NTT (K1 or K2, via ntt/ntt.py) in encrypt,
 decrypt and rescale, the weighted sum (K3, ckks/pallas_agg.py) and the
@@ -21,10 +25,12 @@ import torch
 
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
+from ..utils import threefry
 from . import encoding, pallas_agg
 from .params import CkksContext
 from .keys import (SecretKey, PublicKey, uniform_mod_q, ternary_coeffs,
-                   cbd_coeffs, lift_signed)
+                   cbd_coeffs, lift_signed, uniform_mod_q_tf,
+                   ternary_coeffs_tf, cbd_coeffs_tf, uniform_mod_q_xor2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +41,25 @@ class Ciphertext:
     level: int
 
     @property
+    def num_chunks(self) -> int:
+        return int(self.data.shape[-4])
+
+    @property
     def live_limbs(self) -> int:
         return int(self.data.shape[-2])
+
+
+@dataclasses.dataclass(frozen=True)
+class SeededCiphertext:
+    """A fresh secret-key ciphertext with c1 elided: c1 = -a, where `a` is
+    expanded from the 128-bit seed carried beside c0 (the XOR of two
+    threefry streams keyed by its two halves, keys.uniform_mod_q_xor2).
+    Half the upload of a full ciphertext; the server expands on arrival
+    (expand_seeded). As fhe_fed_tpu.ckks.ops.SeededCiphertext."""
+    c0: torch.Tensor          # (chunks, live, N) int32
+    seed: torch.Tensor        # (4,) uint32 words, int64
+    scale: float
+    level: int
 
 
 def _scale(ctx: CkksContext, scale: float | None) -> float:
@@ -47,45 +70,119 @@ def _tables(ctx: CkksContext, live: int):
     return ctx.tables.slice_limbs(0, live)
 
 
+def _per_key_shape(key: torch.Tensor, shape) -> tuple:
+    """The shape each key of a batch (..., 2) draws: `shape` without the
+    leading dimensions that the key batch covers."""
+    b = key.dim() - 1
+    if tuple(key.shape[:-1]) != tuple(shape[:b]):
+        raise ValueError(f"keys {tuple(key.shape)} do not match the leading "
+                         f"dimensions of {tuple(shape)}")
+    return tuple(shape[b:])
+
+
+def _sym_samples(ctx: CkksContext, rng, shape):
+    """(a_hat (..., L, N), e (..., N)) for a secret-key encrypt of values
+    `shape` (..., N): k_a, k_e = split(key), as _encrypt_sym_impl."""
+    L = ctx.params.chain_len
+    moduli = ctx.params.moduli
+    if isinstance(rng, torch.Generator):
+        *lead, n = shape
+        return (uniform_mod_q(rng, (*lead, L, n), moduli),
+                cbd_coeffs(rng, tuple(shape)))
+    *lead, n = _per_key_shape(rng, shape)
+    k_a, k_e = threefry.split(rng).unbind(-2)
+    return (uniform_mod_q_tf(k_a, (*lead, L, n), moduli),
+            cbd_coeffs_tf(k_e, (*lead, n)))
+
+
+def _pk_samples(rng, shape):
+    """(u, e0, e1), each (..., N), for a public-key encrypt of polynomials
+    `shape` (..., N): k_u, k_e0, k_e1 = split(key, 3), as _encrypt_pt_impl."""
+    if isinstance(rng, torch.Generator):
+        return (ternary_coeffs(rng, shape), cbd_coeffs(rng, shape),
+                cbd_coeffs(rng, shape))
+    per = _per_key_shape(rng, shape)
+    k_u, k_e0, k_e1 = threefry.split(rng, 3).unbind(-2)
+    return (ternary_coeffs_tf(k_u, per), cbd_coeffs_tf(k_e0, per),
+            cbd_coeffs_tf(k_e1, per))
+
+
+def _split_clients(rng, k: int):
+    """A stacked encrypt gives client i the key split(key, K)[i]."""
+    return rng if isinstance(rng, torch.Generator) else threefry.split(rng, k)
+
+
+def _sym_c0(ctx: CkksContext, sk: SecretKey, values: torch.Tensor,
+            a_hat: torch.Tensor, e: torch.Tensor, scale: float
+            ) -> torch.Tensor:
+    """c0 = a*s + NTT(m + e) (..., L, N) int64: one NTT batch."""
+    L = ctx.params.chain_len
+    qb = ctx.q[:L, None]
+    pt = encoding.encode_coeff(ctx, values, scale)
+    w = modops.add_mod(pt, lift_signed(e, ctx.q[:L]), qb).to(torch.int32)
+    w_hat = ntt_mod.ntt(w, _tables(ctx, L))
+    return modops.add_mod(
+        modops.mul_mod_shoup(a_hat, sk.s[:L], sk.s_shoup[:L], qb), w_hat, qb)
+
+
 def encrypt_symmetric_core(ctx: CkksContext, sk: SecretKey,
                            values: torch.Tensor, a_hat: torch.Tensor,
                            e: torch.Tensor, scale: float) -> torch.Tensor:
     """Secret-key RLWE: ct = (a*s + NTT(m + e), -a), with `a_hat` (..., L, N)
     uniform in the evaluation domain and `e` (..., N) small signed error.
     values (..., N) f32 -> data (..., 2, L, N) int32. One NTT batch."""
-    L = ctx.params.chain_len
-    qb = ctx.q[:L, None]
-    pt = encoding.encode_coeff(ctx, values, scale)
-    w = modops.add_mod(pt, lift_signed(e, ctx.q[:L]), qb).to(torch.int32)
-    w_hat = ntt_mod.ntt(w, _tables(ctx, L))
-    c0 = modops.add_mod(
-        modops.mul_mod_shoup(a_hat, sk.s[:L], sk.s_shoup[:L], qb), w_hat, qb)
+    qb = ctx.q[:ctx.params.chain_len, None]
+    c0 = _sym_c0(ctx, sk, values, a_hat, e, scale)
     c1 = modops.neg_mod(a_hat, qb)
     return torch.stack([c0, c1], dim=-3).to(torch.int32)
 
 
 def encrypt_symmetric(ctx: CkksContext, sk: SecretKey, values: torch.Tensor,
-                      gen: torch.Generator,
-                      scale: float | None = None) -> Ciphertext:
+                      rng, scale: float | None = None) -> Ciphertext:
     """Secret-key encrypt of (chunks, N) f32 values."""
     scale = _scale(ctx, scale)
-    *lead, n = values.shape
-    a_hat = uniform_mod_q(gen, (*lead, ctx.params.chain_len, n),
-                          ctx.params.moduli)
-    e = cbd_coeffs(gen, (*lead, n))
+    a_hat, e = _sym_samples(ctx, rng, values.shape)
     return Ciphertext(encrypt_symmetric_core(ctx, sk, values, a_hat, e, scale),
                       scale, 0)
 
 
 def encrypt_symmetric_stacked(ctx: CkksContext, sk: SecretKey,
-                              values: torch.Tensor, gen: torch.Generator,
+                              values: torch.Tensor, rng,
                               scale: float | None = None) -> Ciphertext:
     """Encrypt a whole cohort: values (K, chunks, N) -> data
     (K, chunks, 2, L, N), one NTT batch for all K clients."""
     if values.dim() != 3:
         raise ValueError(f"expected (K, chunks, N) values, got "
                          f"{tuple(values.shape)}")
-    return encrypt_symmetric(ctx, sk, values, gen, scale)
+    return encrypt_symmetric(ctx, sk, values,
+                             _split_clients(rng, values.shape[0]), scale)
+
+
+def encrypt_symmetric_seeded(ctx: CkksContext, sk: SecretKey,
+                             values: torch.Tensor, rng_key: torch.Tensor,
+                             scale: float | None = None) -> SeededCiphertext:
+    """Secret-key encrypt of (chunks, N) f32 with c1 elided. The wire seed
+    is bits(key, (4,)), the error key fold_in(key, 0x5eed); `a` is expanded
+    from the seed as expand_seeded does."""
+    scale = _scale(ctx, scale)
+    seed = threefry.bits(rng_key, (4,))
+    e = cbd_coeffs_tf(threefry.fold_in(rng_key, 0x5eed), values.shape)
+    chunks, n = values.shape
+    a_hat = uniform_mod_q_xor2(seed[:2], seed[2:],
+                               (chunks, ctx.params.chain_len, n),
+                               ctx.params.moduli)
+    c0 = _sym_c0(ctx, sk, values, a_hat, e, scale).to(torch.int32)
+    return SeededCiphertext(c0=c0, seed=seed, scale=scale, level=0)
+
+
+def expand_seeded(ctx: CkksContext, sct: SeededCiphertext) -> Ciphertext:
+    """Server side: rebuild the full (c0, c1) ciphertext from (c0, seed)."""
+    chunks, L, n = sct.c0.shape
+    seed = sct.seed.to(sct.c0.device)
+    a_hat = uniform_mod_q_xor2(seed[:2], seed[2:], (chunks, L, n),
+                               ctx.params.moduli)
+    c1 = modops.neg_mod(a_hat, ctx.q[:L, None]).to(torch.int32)
+    return Ciphertext(torch.stack([sct.c0, c1], dim=1), sct.scale, sct.level)
 
 
 def encrypt_encoded_core(ctx: CkksContext, pk: PublicKey, pt: torch.Tensor,
@@ -123,37 +220,31 @@ def encrypt_core(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
 
 
 def encrypt_encoded(ctx: CkksContext, pk: PublicKey, pt: torch.Tensor,
-                    gen: torch.Generator, scale: float) -> Ciphertext:
+                    rng, scale: float) -> Ciphertext:
     """Public-key encrypt of already-encoded residues (chunks, chain, N),
     e.g. slot-packed plaintexts from slots.encode_slots."""
-    shape = pt.shape[:-2] + pt.shape[-1:]
-    u = ternary_coeffs(gen, shape)
-    e0 = cbd_coeffs(gen, shape)
-    e1 = cbd_coeffs(gen, shape)
+    u, e0, e1 = _pk_samples(rng, pt.shape[:-2] + pt.shape[-1:])
     return Ciphertext(encrypt_encoded_core(ctx, pk, pt, u, e0, e1),
                       float(scale), 0)
 
 
 def encrypt(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
-            gen: torch.Generator, scale: float | None = None) -> Ciphertext:
+            rng, scale: float | None = None) -> Ciphertext:
     """Public-key encrypt of (chunks, N) f32 values."""
     scale = _scale(ctx, scale)
-    shape = values.shape
-    u = ternary_coeffs(gen, shape)
-    e0 = cbd_coeffs(gen, shape)
-    e1 = cbd_coeffs(gen, shape)
+    u, e0, e1 = _pk_samples(rng, values.shape)
     return Ciphertext(encrypt_core(ctx, pk, values, u, e0, e1, scale),
                       scale, 0)
 
 
 def encrypt_stacked(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
-                    gen: torch.Generator,
-                    scale: float | None = None) -> Ciphertext:
+                    rng, scale: float | None = None) -> Ciphertext:
     """Public-key analogue of encrypt_symmetric_stacked."""
     if values.dim() != 3:
         raise ValueError(f"expected (K, chunks, N) values, got "
                          f"{tuple(values.shape)}")
-    return encrypt(ctx, pk, values, gen, scale)
+    return encrypt(ctx, pk, values, _split_clients(rng, values.shape[0]),
+                   scale)
 
 
 def decrypt_residues(ctx: CkksContext, sk: SecretKey,
@@ -170,6 +261,16 @@ def decrypt_residues(ctx: CkksContext, sk: SecretKey,
 def decrypt(ctx: CkksContext, sk: SecretKey, ct: Ciphertext) -> torch.Tensor:
     """Decrypt to (chunks, N) f32."""
     return encoding.decode_coeff(ctx, decrypt_residues(ctx, sk, ct), ct.scale)
+
+
+def log2_precision(actual, expected) -> float:
+    """Bits of precision of a decrypted result: -log2(max |actual -
+    expected|), in f64 (PALISADE's GetLogPrecision)."""
+    def f64(x):
+        return np.asarray(x.cpu() if torch.is_tensor(x) else x,
+                          dtype=np.float64)
+    err = float(np.max(np.abs(f64(actual) - f64(expected))))
+    return float("inf") if err == 0.0 else -float(np.log2(err))
 
 
 def add(ctx: CkksContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
@@ -222,13 +323,6 @@ def _scalar_scale(ctx: CkksContext, level: int) -> float:
     return float(ctx.params.moduli[ctx.params.chain_len - 1 - level])
 
 
-def _mod_u32(x: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
-    """Reduce a value < 2**32 mod q for q > 2**30 (<= 3 subtractions)."""
-    x = torch.where(x >= 2 * qb, x - 2 * qb, x)
-    x = torch.where(x >= qb, x - qb, x)
-    return torch.where(x >= qb, x - qb, x)
-
-
 def modsum_clients(terms: torch.Tensor, qb: torch.Tensor,
                    pow32b: torch.Tensor, pow32b_shoup: torch.Tensor):
     """Modular sum over axis 0 (clients) by 16-bit split accumulation:
@@ -240,8 +334,8 @@ def modsum_clients(terms: torch.Tensor, qb: torch.Tensor,
     hi = torch.sum(terms >> 16, dim=0)
     a = hi >> 16
     b = hi & 0xFFFF
-    r = _mod_u32(lo, qb)
-    r = modops.add_mod(r, _mod_u32(b << 16, qb), qb)
+    r = modops.reduce_u32(lo, qb)
+    r = modops.add_mod(r, modops.reduce_u32(b << 16, qb), qb)
     a32 = modops.mul_mod_shoup(a, pow32b, pow32b_shoup, qb)
     return modops.add_mod(r, a32, qb)
 
@@ -307,10 +401,10 @@ def weighted_sum(ctx: CkksContext, cts, weights) -> Ciphertext:
 
 
 def fedavg_round_fused(ctx: CkksContext, sk: SecretKey, values: torch.Tensor,
-                       gen: torch.Generator, weights,
+                       rng, weights,
                        scale: float | None = None) -> torch.Tensor:
     """One secure-FedAvg round in one call: encrypt all K clients
     (secret-key), weighted sum, decrypt. values (K, chunks, N) f32 ->
     averaged (chunks, N) f32 on the same device."""
-    ct = encrypt_symmetric_stacked(ctx, sk, values, gen, scale)
+    ct = encrypt_symmetric_stacked(ctx, sk, values, rng, scale)
     return decrypt(ctx, sk, weighted_sum(ctx, ct, weights))

@@ -1,14 +1,15 @@
 """Wire formats, byte-identical to fhe_fed_tpu.ckks.serial.
 
-Ciphertext (FFTC):
-  magic 'FFTC' | ver u16 | ring_dim u32 | batch u32 | scale_bits u16 |
+Ciphertext (FFTC coefficient-packed, FFTP slot-packed):
+  magic | ver u16 | ring_dim u32 | batch u32 | scale_bits u16 |
   chunks u32 | live u32 | level u16 | scale f64 | payload u32[chunks*2*live*N]
+Seed-compressed fresh ciphertext (FFTS): the same header, then the seed
+  u32[4] and c0 u32[chunks*live*N] (c1 is expanded from the seed).
 Keys (FFTK): magic | ver u16 | kind u8 (0 secret, 1 public) | ring_dim u32 |
   L u32 | count u32 | count arrays of u32[L*N].
 
 Residues are non-negative int32 and Shoup words int64 in memory; on the
-wire both are little-endian u32. The slot-packed (FFTP) and seed-compressed
-(FFTS) ciphertexts are not ported yet.
+wire both are little-endian u32.
 """
 
 from __future__ import annotations
@@ -20,11 +21,11 @@ import torch
 
 from .params import CkksContext
 from .keys import SecretKey, PublicKey
-from .ops import Ciphertext
+from .ops import Ciphertext, SeededCiphertext, expand_seeded
 
-_CT_MAGIC = b"FFTC"
-_CTP_MAGIC = b"FFTP"
-_SCT_MAGIC = b"FFTS"
+_CT_MAGIC = b"FFTC"       # coefficient-packed ciphertext
+_CTP_MAGIC = b"FFTP"      # slot-packed (canonical embedding) ciphertext
+_SCT_MAGIC = b"FFTS"      # seed-compressed fresh ciphertext
 _KEY_MAGIC = b"FFTK"
 _VER = 1
 _CT_HDR = struct.Struct("<4sHIIHIIHd")
@@ -37,40 +38,92 @@ def _u32_bytes(t: torch.Tensor) -> bytes:
     return np.ascontiguousarray(t.cpu().numpy(), dtype="<u4").tobytes()
 
 
-def _not_ported(magic: bytes):
-    if magic in (_CTP_MAGIC, _SCT_MAGIC):
-        raise NotImplementedError(
-            f"{magic.decode()} ciphertexts (slot-packed / seed-compressed) "
-            "are not ported yet")
+def _ct_header(ctx: CkksContext, magic: bytes, chunks: int, live: int,
+               level: int, scale: float) -> bytes:
+    return _CT_HDR.pack(magic, _VER, ctx.ring_dim, ctx.params.batch,
+                        ctx.params.scale_bits, chunks, live, level,
+                        float(scale))
 
 
-def serialize_ct(ctx: CkksContext, ct: Ciphertext) -> bytes:
-    """Coefficient-packed ciphertext (chunks, 2, live, N) -> FFTC bytes."""
-    chunks, two, live, _ = ct.data.shape
-    if two != 2:
-        raise ValueError("serialize_ct expects (chunks, 2, live, N) data")
-    hdr = _CT_HDR.pack(_CT_MAGIC, _VER, ctx.ring_dim, ctx.params.batch,
-                       ctx.params.scale_bits, chunks, live, ct.level,
-                       float(ct.scale))
-    return hdr + _u32_bytes(ct.data)
-
-
-def deserialize_ct(ctx: CkksContext, blob: bytes) -> Ciphertext:
-    magic, ver, ring_dim, _batch, scale_bits, chunks, live, level, scale = \
-        _CT_HDR.unpack_from(blob, 0)
-    _not_ported(magic)
-    if magic != _CT_MAGIC or ver != _VER:
-        raise ValueError("not a fhe_fed_tpu ciphertext blob")
+def _check_params(ctx: CkksContext, ring_dim: int, scale_bits: int) -> None:
     if ring_dim != ctx.ring_dim or scale_bits != ctx.params.scale_bits:
         raise ValueError(
             f"ciphertext params (N={ring_dim}, sb={scale_bits}) do not match "
             f"context (N={ctx.ring_dim}, sb={ctx.params.scale_bits})")
-    arr = np.frombuffer(blob, dtype="<u4", offset=_CT_HDR.size,
-                        count=chunks * 2 * live * ring_dim)
-    data = torch.as_tensor(arr.astype(np.int32).reshape(chunks, 2, live,
-                                                        ring_dim),
-                           device=ctx.device)
+
+
+def _residues(blob: bytes, offset: int, shape, device) -> torch.Tensor:
+    arr = np.frombuffer(blob, dtype="<u4", offset=offset,
+                        count=int(np.prod(shape)))
+    return torch.as_tensor(arr.astype(np.int32).reshape(shape), device=device)
+
+
+def serialize_ct(ctx: CkksContext, ct: Ciphertext,
+                 packing: str = "coeff") -> bytes:
+    """(chunks, 2, live, N) ciphertext -> FFTC bytes, or FFTP bytes with
+    packing="slots", so a consumer of the other packing cannot silently
+    mis-decode the blob."""
+    chunks, two, live, _ = ct.data.shape
+    if two != 2:
+        raise ValueError("serialize_ct expects (chunks, 2, live, N) data")
+    magic = _CTP_MAGIC if packing == "slots" else _CT_MAGIC
+    return (_ct_header(ctx, magic, chunks, live, ct.level, ct.scale)
+            + _u32_bytes(ct.data))
+
+
+def deserialize_ct(ctx: CkksContext, blob: bytes,
+                   packing: str = "coeff") -> Ciphertext:
+    magic, ver, ring_dim, _batch, scale_bits, chunks, live, level, scale = \
+        _CT_HDR.unpack_from(blob, 0)
+    want = _CTP_MAGIC if packing == "slots" else _CT_MAGIC
+    if magic in (_CT_MAGIC, _CTP_MAGIC) and magic != want:
+        raise ValueError(
+            "ciphertext packing mismatch: blob is "
+            f"{'slot' if magic == _CTP_MAGIC else 'coefficient'}-packed "
+            f"but this helper decodes {packing!r}")
+    if magic != want or ver != _VER:
+        raise ValueError("not a fhe_fed_tpu ciphertext blob")
+    _check_params(ctx, ring_dim, scale_bits)
+    data = _residues(blob, _CT_HDR.size, (chunks, 2, live, ring_dim),
+                     ctx.device)
     return Ciphertext(data=data, scale=scale, level=level)
+
+
+def serialize_seeded_ct(ctx: CkksContext, sct: SeededCiphertext) -> bytes:
+    """header | seed u32[4] | c0 payload: about half of serialize_ct."""
+    chunks, live, _ = sct.c0.shape
+    return (_ct_header(ctx, _SCT_MAGIC, chunks, live, sct.level, sct.scale)
+            + _u32_bytes(sct.seed) + _u32_bytes(sct.c0))
+
+
+def deserialize_seeded_ct(ctx: CkksContext, blob: bytes) -> SeededCiphertext:
+    magic, ver, ring_dim, _batch, scale_bits, chunks, live, level, scale = \
+        _CT_HDR.unpack_from(blob, 0)
+    if magic != _SCT_MAGIC or ver != _VER:
+        raise ValueError("not a fhe_fed_tpu seeded-ciphertext blob")
+    _check_params(ctx, ring_dim, scale_bits)
+    seed = np.frombuffer(blob, dtype="<u4", offset=_CT_HDR.size, count=4)
+    c0 = _residues(blob, _CT_HDR.size + 16, (chunks, live, ring_dim),
+                   ctx.device)
+    return SeededCiphertext(
+        c0=c0, seed=torch.as_tensor(seed.astype(np.int64), device=ctx.device),
+        scale=scale, level=level)
+
+
+def deserialize_any_ct(ctx: CkksContext, blob: bytes,
+                       packing: str = "coeff") -> Ciphertext:
+    """Dispatch on magic: full ciphertexts pass through, seed-compressed
+    fresh ciphertexts are expanded to (c0, c1) here. A seeded blob is
+    always coefficient-packed, so a slot-mode consumer refuses it before
+    expanding (the JAX package's deserialize_any_ct expands first and lets
+    a slot-mode server mis-aggregate it)."""
+    if blob[:4] == _SCT_MAGIC:
+        if packing != "coeff":
+            raise ValueError(
+                "ciphertext packing mismatch: a seed-compressed blob is "
+                f"coefficient-packed but this helper decodes {packing!r}")
+        return expand_seeded(ctx, deserialize_seeded_ct(ctx, blob))
+    return deserialize_ct(ctx, blob, packing=packing)
 
 
 def _pack_key_arrays(kind: int, ring_dim: int, arrays) -> bytes:

@@ -8,11 +8,13 @@ imports jax: callers pass `np.asarray(jax_array)`.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from .ckks.keys import SecretKey, PublicKey
-from .ckks.ops import Ciphertext
+from .ckks.ops import Ciphertext, SeededCiphertext
 from .ckks.keyswitch import KSwitchKey
 
 
@@ -53,6 +55,39 @@ def ciphertext_from_numpy(data, scale: float, level: int,
     """u32 ciphertext data (..., chunks, 2, live, N) -> Ciphertext."""
     return Ciphertext(data=_tensor("data", data, device), scale=float(scale),
                       level=int(level))
+
+
+def seeded_ciphertext_from_numpy(c0, seed, scale: float, level: int,
+                                 device="cpu") -> SeededCiphertext:
+    """u32 c0 (chunks, live, N) and u32 seed (4,) -> SeededCiphertext."""
+    return SeededCiphertext(
+        c0=_tensor("c0", c0, device),
+        seed=torch.as_tensor(np.asarray(seed, dtype=np.uint32).astype(
+            np.int64), device=device),
+        scale=float(scale), level=int(level))
+
+
+def cnn_fedavg_state_dict_from_numpy(params) -> collections.OrderedDict:
+    """The JAX model's parameters {conv1, conv2, fc1, fc2: {w, b}} (numpy)
+    -> a CNNOriginalFedAvg state_dict. Conv kernels HWIO -> OIHW, dense
+    (in, out) -> (out, in); fc1's input rows are the JAX model's NHWC
+    flatten (h, w, c) and are permuted to torch's (c, h, w)."""
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32))
+
+    sd = collections.OrderedDict()
+    for name in ("conv1", "conv2"):
+        sd[f"{name}.weight"] = t(np.transpose(params[name]["w"],
+                                              (3, 2, 0, 1)))
+        sd[f"{name}.bias"] = t(params[name]["b"])
+    w1 = np.asarray(params["fc1"]["w"])
+    c = w1.shape[0] // 49                        # 7 x 7 x c feature map
+    sd["fc1.weight"] = t(w1.reshape(7, 7, c, -1).transpose(2, 0, 1, 3)
+                         .reshape(w1.shape).T)
+    sd["fc1.bias"] = t(params["fc1"]["b"])
+    sd["fc2.weight"] = t(np.asarray(params["fc2"]["w"]).T)
+    sd["fc2.bias"] = t(params["fc2"]["b"])
+    return sd
 
 
 def kswitch_key_from_numpy(b, b_shoup, a, a_shoup,

@@ -40,6 +40,15 @@ def neg_mod(a, q):
     return torch.where(a == 0, a, q - a)
 
 
+def reduce_u32(x, q):
+    """x mod q for 0 <= x < 2**32 and q > 2**30 (at most three
+    subtractions)."""
+    x = x.to(_I64)
+    x = torch.where(x >= 2 * q, x - 2 * q, x)
+    x = torch.where(x >= q, x - q, x)
+    return torch.where(x >= q, x - q, x)
+
+
 def shoup_precompute(w, q) -> np.ndarray:
     """Host side: floor(w * 2**32 / q) for constants w < q, as numpy int64
     (values in [0, 2**32))."""

@@ -1,0 +1,118 @@
+"""The threefry2x32 PRNG of `jax.random`, bit for bit, in PyTorch.
+
+Reproduces `jax.random` with its default `threefry2x32` implementation and
+`jax_threefry_partitionable` on (the default since jax 0.5), so the port
+draws the JAX package's samples: the same keys, ciphertexts and seeded
+wire blobs from the same seed (jax/_src/prng.py: `threefry_seed`,
+`iota_2x32_shape`, `_threefry_split_foldlike`, `_threefry_fold_in`,
+`_threefry_random_bits_partitionable`).
+
+A key is a tensor (..., 2) of uint32 words held in int64, on an explicit
+device; leading dimensions are a batch of keys, and every function here
+maps over them in one pass. The hash computes in int64 with
+`& 0xFFFFFFFF` after every add and rotate (torch's uint32 is a
+storage-only dtype on the CPU).
+
+  * counter i of a (...)-shaped draw is the flat index split into the
+    words (i >> 32, i & 0xFFFFFFFF);
+  * split(k, num)[i] = threefry2x32(k, counter i), both output words;
+  * bits(k, shape) = out0 ^ out1 of the counters of `shape`;
+  * fold_in(k, d) = threefry2x32(k, (0, d)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_M = 0xFFFFFFFF
+_I64 = torch.int64
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _words(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if not torch.is_tensor(key) or key.shape[-1:] != (2,):
+        raise TypeError(f"a threefry key is a tensor (..., 2), got "
+                        f"{getattr(key, 'shape', type(key).__name__)}")
+    return key[..., 0], key[..., 1]
+
+
+def _rotl_(x: torch.Tensor, r: int) -> torch.Tensor:
+    """In-place 32-bit rotate left of words held in int64."""
+    low = x >> (32 - r)
+    return x.bitwise_left_shift_(r).bitwise_and_(_M).bitwise_or_(low)
+
+
+def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block function (20 rounds), elementwise over the
+    broadcast of key words (k0, k1) and counter words (x0, x1)."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + k0) & _M
+    x1 = (x1 + k1) & _M
+    x0, x1 = torch.broadcast_tensors(x0, x1)
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_M)
+            _rotl_(x1, r).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_M)
+    return x0, x1
+
+
+def _counters(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=_I64,
+                       device=device).reshape(tuple(shape))
+    return idx >> 32, idx & _M
+
+
+def _hash_counters(key: torch.Tensor, shape):
+    """Both output words for every counter of `shape`, under each key:
+    (*key.shape[:-1], *shape) each."""
+    shape = tuple(shape)
+    k0, k1 = _words(key)
+    expand = (...,) + (None,) * len(shape)
+    c_hi, c_lo = _counters(shape, key.device)
+    return threefry2x32(k0[expand], k1[expand], c_hi, c_lo)
+
+
+def key(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """jax.random.key(seed) with 64-bit mode off, as key data (2,): the seed
+    is taken as an int64 and keeps its low 32 bits, so key(s) is
+    (0, s mod 2**32) (jax.random.key(2**62 + 12345) is (0, 12345))."""
+    seed = int(seed)
+    if not -(1 << 63) <= seed < (1 << 63):
+        raise OverflowError(f"seed {seed} does not fit in int64")
+    return torch.tensor([0, seed & _M], dtype=_I64, device=device)
+
+
+def wrap_key_data(words, device: torch.device | str | None = None
+                  ) -> torch.Tensor:
+    """uint32 key words (..., 2) (numpy, tensor or sequence) -> a key."""
+    if torch.is_tensor(words):
+        t = words.to(_I64) & _M
+        return t if device is None else t.to(device)
+    a = np.asarray(words, dtype=np.uint32).astype(np.int64)
+    return torch.as_tensor(a, device="cpu" if device is None else device)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split(key, num): (..., 2) -> (..., num, 2)."""
+    y0, y1 = _hash_counters(key, (num,))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """jax.random.fold_in(key, data) for a 32-bit `data`: (..., 2)."""
+    k0, k1 = _words(key)
+    zero = torch.zeros((), dtype=_I64, device=key.device)
+    y0, y1 = threefry2x32(k0, k1, zero, zero + (int(data) & _M))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """jax.random.bits(key, shape, uint32): uniform 32-bit words, as int64
+    values in [0, 2**32), shape (*key.shape[:-1], *shape)."""
+    y0, y1 = _hash_counters(key, shape)
+    return y0.bitwise_xor_(y1)

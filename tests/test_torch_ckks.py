@@ -197,6 +197,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((root / "fhe_fed_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(root)) for f in files}
+    for mod in ("utils/threefry.py", "fed/api.py", "fed/scheme.py",
+                "fed/fedavg.py", "models/basic.py"):
+        assert f"fhe_fed_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "fhe_fed_tpu")
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -208,3 +212,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{f}: {name}"
+
+
+def test_log2_precision_matches_jax():
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(100)
+    b = a + rng.uniform(-1e-7, 1e-7, 100)
+    want = J_ops.log2_precision(a, b)
+    assert T_ops.log2_precision(a, b) == want
+    assert T_ops.log2_precision(torch.as_tensor(a, dtype=torch.float32),
+                                b.astype(np.float32)) == \
+        J_ops.log2_precision(a.astype(np.float32), b.astype(np.float32))
+    assert T_ops.log2_precision(a, a) == float("inf")

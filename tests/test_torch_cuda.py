@@ -6,18 +6,19 @@ host run them with
 
 They repeat chip_smoke.py's phases at smaller sizes, plus the shapes and
 options the paths do not reach (small rings, K > 8, every live-limb count
-of the decode, both NTT kernels on one ring).
+of the decode, both NTT kernels on one ring), and hold the threefry
+sampling, the CKKS bytes surface and the FFTS expansion on the card equal
+to the CPU.
 """
 
 import dataclasses
-
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from fhe_fed_tpu_torch import cuda_lib
+from fhe_fed_tpu_torch import cuda_lib, CKKS
 from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
 from fhe_fed_tpu_torch.ntt import ntt as ntt_mod
@@ -25,6 +26,7 @@ from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
 from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode, keys
 from fhe_fed_tpu_torch.ckks import keyswitch as KS
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
+from fhe_fed_tpu_torch.utils import threefry as TF
 
 pytestmark = pytest.mark.cuda
 
@@ -199,3 +201,78 @@ def test_main_path_small(dev):
     outs, _ = chip_smoke.drive("fedavg", lambda: chip_smoke.run_main_path(
         ctx, sk, pk, values, weights, _gen(dev)))
     assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR
+
+
+@pytest.mark.parametrize("seed", [0, 2024])
+def test_threefry_and_samplers_on_card_equal_cpu(dev, seed):
+    kc, kg = TF.key(seed), TF.key(seed, dev)
+    assert torch.equal(TF.split(kg, 5).cpu(), TF.split(kc, 5))
+    assert torch.equal(TF.fold_in(kg, 0x5eed).cpu(), TF.fold_in(kc, 0x5eed))
+    kc, kg = TF.split(kc, 3), TF.split(kg, 3)
+    assert torch.equal(TF.bits(kg, (4, 8192)).cpu(), TF.bits(kc, (4, 8192)))
+    moduli = P.make_params(batch=4096, scale_bits=52, mult_depth=1).moduli
+    shape = (2, 5, 8192)
+    assert torch.equal(keys.uniform_mod_q_tf(kg, shape, moduli).cpu(),
+                       keys.uniform_mod_q_tf(kc, shape, moduli))
+    assert torch.equal(
+        keys.uniform_mod_q_xor2(kg[0], kg[1], shape, moduli).cpu(),
+        keys.uniform_mod_q_xor2(kc[0], kc[1], shape, moduli))
+    for fn in (keys.ternary_coeffs_tf, keys.cbd_coeffs_tf):
+        assert torch.equal(fn(kg, (3, 8192)).cpu(), fn(kc, (3, 8192)))
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(symmetric=True),
+                                  dict(seeded_fresh=True),
+                                  dict(packing="slots")])
+def test_ckks_bytes_on_card_equal_cpu(dev, tmp_path, mode):
+    helpers = [CKKS("ckks", 128, 40, cryptodir=str(tmp_path / d.type),
+                    seed=7, device=d, **mode)
+               for d in (torch.device("cpu"), dev)]
+    for h in helpers:
+        h.genCryptoContextAndKeyGen()
+    for name in ("key-public.txt", "key-private.txt"):
+        assert (tmp_path / "cpu" / name).read_bytes() == \
+            (tmp_path / "cuda" / name).read_bytes()
+    data = [np.random.default_rng(i).standard_normal(300) for i in range(3)]
+    blobs = [[h.encrypt(x) for x in data] for h in helpers]
+    assert blobs[0] == blobs[1]
+    aggs = [h.computeWeightedAverage(b, [0.5, 0.2, 0.3])
+            for h, b in zip(helpers, blobs)]
+    assert aggs[0] == aggs[1]
+    outs = [h.decrypt(a, 300) for h, a in zip(helpers, aggs)]
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_ffts_expansion_on_card(dev):
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
+    cpu, gpu = P.make_context(params), P.make_context(params, dev)
+    sk_blob = (chip_smoke.KEY_DIR / "key-private.txt").read_bytes()
+    sk = S.deserialize_secret_key(sk_blob)
+    vals = torch.randn((3, 8192), generator=torch.Generator().manual_seed(1))
+    sct = ops.encrypt_symmetric_seeded(cpu, sk, vals * 0.1, TF.key(4))
+    blob = S.serialize_seeded_ct(cpu, sct)
+    want = ops.expand_seeded(cpu, sct)
+    got = S.deserialize_any_ct(gpu, blob)
+    assert got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+    gsk = S.deserialize_secret_key(sk_blob, dev)
+    gsct = ops.encrypt_symmetric_seeded(gpu, gsk, (vals * 0.1).to(dev),
+                                        TF.key(4, dev))
+    assert S.serialize_seeded_ct(gpu, gsct) == blob
+    assert torch.equal(ops.decrypt(gpu, gsk, got).cpu(),
+                       ops.decrypt(cpu, sk, want))
+
+
+def test_api_path_small(dev, tmp_path):
+    """chip_smoke's known answers and API path with 20,000-value vectors
+    (the streamed round in one slice)."""
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
+    chip_smoke.check_known_answers(P.make_context(params, dev))
+    hs = chip_smoke.api_helpers(
+        chip_smoke.write_cryptodir(params, tmp_path / "crypto"), dev)
+    cnn, bert, slot = (chip_smoke.api_vectors(20000, s) for s in (1, 2, 3))
+    sds = chip_smoke.cnn_state_dicts()
+    (outs, blobs), counts = chip_smoke.drive("api", lambda: (
+        chip_smoke.run_api_path(hs, cnn[0], bert[0], slot[0], sds)))
+    errs = chip_smoke.check_api(outs, dict(cnn=cnn[1], bert=bert[1],
+                                           slots=slot[1]), blobs, sds, dev)
+    assert errs["ffts_over_fftc"] <= chip_smoke.FFTS_RATIO

@@ -15,6 +15,7 @@ from fhe_fed_tpu.ckks import params as J_params, ops as J_ops
 from fhe_fed_tpu.ckks import serial as J_serial
 from fhe_fed_tpu_torch.ckks import params as T_params, ops as T_ops
 from fhe_fed_tpu_torch.ckks import serial as T_serial
+from fhe_fed_tpu_torch import interop
 
 torch.set_num_threads(1)
 
@@ -74,10 +75,16 @@ def test_jax_ciphertext_decrypts_bit_identically_in_port(bench):
 def test_deserialize_refuses_other_blobs(bench):
     _, tctx, sk_blob, _ = bench
     hdr = struct.Struct("<4sHIIHIIHd")
-    for magic in (b"FFTP", b"FFTS"):
+    for magic, packing in ((b"FFTP", "coeff"), (b"FFTC", "slots")):
         blob = hdr.pack(magic, 1, 8192, 4096, 52, 1, 4, 0, 2.0 ** 52)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T_serial.deserialize_ct(tctx, blob)
+        with pytest.raises(ValueError, match="packing mismatch"):
+            T_serial.deserialize_ct(tctx, blob, packing=packing)
+    blob = hdr.pack(b"FFTS", 1, 8192, 4096, 52, 1, 4, 0, 2.0 ** 52)
+    with pytest.raises(ValueError, match="not a fhe_fed_tpu ciphertext"):
+        T_serial.deserialize_ct(tctx, blob)
+    with pytest.raises(ValueError, match="seeded-ciphertext"):
+        T_serial.deserialize_seeded_ct(tctx, hdr.pack(
+            b"FFTC", 1, 8192, 4096, 52, 1, 4, 0, 2.0 ** 52))
     with pytest.raises(ValueError, match="do not match"):
         T_serial.deserialize_ct(
             tctx, hdr.pack(b"FFTC", 1, 4096, 4096, 52, 1, 4, 0, 1.0))
@@ -86,3 +93,29 @@ def test_deserialize_refuses_other_blobs(bench):
                                                4, 0, 1.0))
     with pytest.raises(ValueError, match="key blob"):
         T_serial.deserialize_public_key(sk_blob)
+
+
+def test_seeded_and_slot_blobs_cross_both_ways(bench):
+    """A JAX FFTS blob parses to the same seed and c0 in the port and
+    re-serializes to the same bytes; its expansion is the JAX one's; an
+    FFTP blob round-trips through both packages."""
+    jctx, tctx, sk_blob, _ = bench
+    jsk = J_serial.deserialize_secret_key(sk_blob)
+    vals = np.linspace(-1, 1, 2 * 8192, dtype=np.float32).reshape(2, 8192)
+    sct = J_ops.encrypt_symmetric_seeded(jctx, jsk, jnp.asarray(vals),
+                                         jax.random.key(6))
+    blob = J_serial.serialize_seeded_ct(jctx, sct)
+    tsct = T_serial.deserialize_seeded_ct(tctx, blob)
+    np.testing.assert_array_equal(tsct.seed.numpy(), np.asarray(sct.seed))
+    assert T_serial.serialize_seeded_ct(tctx, tsct) == blob
+    carried = interop.seeded_ciphertext_from_numpy(
+        np.asarray(sct.c0), np.asarray(sct.seed), sct.scale, sct.level)
+    assert T_serial.serialize_seeded_ct(tctx, carried) == blob
+    full = J_serial.serialize_ct(jctx, J_ops.expand_seeded(jctx, sct))
+    assert T_serial.serialize_ct(
+        tctx, T_serial.deserialize_any_ct(tctx, blob)) == full
+    slot_blob = b"FFTP" + full[4:]
+    tct = T_serial.deserialize_ct(tctx, slot_blob, packing="slots")
+    assert T_serial.serialize_ct(tctx, tct, packing="slots") == slot_blob
+    assert J_serial.serialize_ct(jctx, J_serial.deserialize_ct(
+        jctx, slot_blob, packing="slots"), packing="slots") == slot_blob
