@@ -11,7 +11,8 @@ Phases (each raises on failure, so the script exits non-zero):
      the shapes the paths give it, and time both with CUDA events: K1, K3
      and K4 at the FedAvg shapes, K3 also at 64 clients, K4 also at 11 live
      limbs, K2 at the rotation path's shapes and a 64-chunk batch, and K2
-     against K1 at N = 8192;
+     against K1 at N = 8192 (the threshold path's shapes are held in
+     phase 9);
   4. the FedAvg path at the bench configuration (CNN_OriginalFedAvg,
      1,663,370 parameters x 3 clients, batch 4096 / scale 2^52 / N 8192,
      204 dense chunks) with the committed keys: secret-key encrypt ->
@@ -37,12 +38,47 @@ Phases (each raises on failure, so the script exits non-zero):
      fhe_fedavg over three CNNOriginalFedAvg state_dicts (FULL, rate 0.1,
      the two conv layers) loaded back into a module and run forward; every
      result within 1e-6 of its plaintext reference;
-  8. time each phase after a warm-up.
+  8. time each phase after a warm-up;
+  9. the threshold path (ckks/threshold.py, fed/threshold_api.py): known
+     answers on the card at mkhe_bench's point (batched ceremonies equal
+     the per-party ones bit for bit for keygen, the relinearisation key and
+     a Galois key; keygen equals the CPU's), then ThresholdCKKS (3 parties,
+     batch 4096, 2^52, N 8192, not dense: 407 chunks of the CNN) runs the
+     keygen ceremony, 3 x 1,663,370 values through encrypt ->
+     computeWeightedAverage -> threshold decrypt, fedavg_round fused
+     (threshold_round_fused, K3 on (3, 407, 2, 4, 8192)) and staged, and
+     three partial_decrypt + fuse_partials; then mkhe_bench's circuit
+     (batch 4096, 2^51, depth 2: N 8192, chain 5 + 1 special prime) on the
+     CNN's values in 407 chunks: batched keygen and relinearisation key,
+     mul_scalar(0.5) + add, mul_ct + rescale under the joint key, and the
+     threshold decrypt of both (K4 at 5 and 4 live limbs). Every result
+     within 1e-6 of the plaintext, the ct x ct product within 2^-20 of its
+     largest value of the f64 negacyclic square (the first 4 chunks), and
+     one party's share decodes to noise. Then each kernel against its plain
+     version, bit-exactly, at this path's shapes: for the helper (4 live
+     limbs) K1 on the smudging batch (3, 407, 4, 8192), K3 on the fused
+     round's stack (3, 407, 2, 4, 8192), the fusion's K1 inverse and K4 at
+     (407, 4, 8192); for the mkhe circuit the same K1 and K4 steps at 5
+     live limbs and at 4 after the rescale; each phase timed;
+ 10. the masking path (fed/masking.py, native/paillier.py; 4 learners,
+     2048-bit Paillier, 17-bit ring, 13-bit precision): the offline
+     protocol (keygen, each learner's encrypted pad, the homomorphic sum,
+     its decryption, a dropout recovery over learners 0, 2, 3) and a round
+     on it at 8,500 values (100 Paillier plaintexts per learner: cut from
+     the CNN's 1,663,370 because the offline phase is host bignum work of
+     minutes per learner at model size); the online round (encrypt ->
+     computeWeightedAverage -> decrypt) at the full 1,663,370 values x 4,
+     on pads written by genPaillierRandOffline's draw (os.urandom & mask)
+     with their ring sum, without the Paillier step. It launches none of
+     our kernels: the path checks that its fixed-point codes, masked values
+     and sum are tensors on the card, that each result is within 4 x 2^-13
+     of the plaintext mean, and that a CPU helper gives the same bytes;
+     each phase timed (offline ones on the host clock).
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
-sampling step are traced with torch.profiler and the tables written to
-DIR. The line before the last is {"kernels": [...]}; the last is
+sampling step, one fused threshold round and its smudging step are traced
+with torch.profiler and the tables written to DIR. The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -50,8 +86,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -62,12 +100,16 @@ import torch
 
 from fhe_fed_tpu_torch import cuda_lib
 from fhe_fed_tpu_torch import CKKS, SelectivePolicy, fhe_fedavg, plain_fedavg
+from fhe_fed_tpu_torch import Masking, ThresholdCKKS
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, ntt as ntt_mod, pallas_ntt
 from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
 from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
 from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
+from fhe_fed_tpu_torch.ckks import threshold as thr
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
+from fhe_fed_tpu_torch.fed import masking as M
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
+from fhe_fed_tpu_torch.native import paillier
 from fhe_fed_tpu_torch.utils import threefry
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -111,7 +153,22 @@ PATH_KERNELS = {   # the kernels each driven path must launch
     "multiply": ("ntt_mxu_fused", "intt_mxu_fused"),
     "api": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
             "decode_fused"),
+    "threshold": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+                  "decode_fused"),
+    # Host Paillier and int64 ring sums: no kernel of ours; the path checks
+    # that its tensors live on the card instead.
+    "masking": (),
 }
+THR_PARTIES = 3
+THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
+MKHE_CHECKED = 4          # product chunks held against the f64 convolution
+# The coefficient-packed ct x ct product decodes to values of a few hundred;
+# its error is the f32 decode's rounding (2**-24 relative) plus noise far
+# below it, so it is bounded relative to the largest expected value.
+MKHE_REL_BOUND = 2.0 ** -20
+MASK_LEARNERS = 4
+MASK_OFFLINE_VALUES = 8_500   # 100 Paillier plaintexts of 85 values each
+MASK_GEOMETRY = dict(modulus_bits=2048, num_bits=17, precision_bits=13)
 
 
 def card() -> str:
@@ -160,6 +217,13 @@ def _record(recs, name, got, want, fn, plain_fn, reps, plain_reps=3,
                      max_abs_err=err,
                      ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain_fn,
                                                             plain_reps)))
+
+
+def print_records(recs: list[dict], gpu: str) -> None:
+    for r in recs:
+        print(f"kernel {r['name']} {r['shape']}: bit-exact, "
+              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms ({gpu})",
+              flush=True)
 
 
 def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
@@ -532,6 +596,315 @@ def check_api(outs: dict, wants: dict, blobs: dict, state_dicts,
     return dict(errs, ffts_over_fftc=ratio)
 
 
+def _same_key(a, b) -> bool:
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def check_threshold_known_answers(mctx) -> None:
+    """On mctx.device: the batched ceremonies give the per-party residues
+    bit for bit (keygen, the two-round relinearisation key, the joint
+    Galois key of a rotation by 1), and the keygen equals the CPU's."""
+    dev = mctx.device
+    sks, pk = thr.multiparty_keygen(mctx, THR_PARTIES, seed=1)
+    sec, pk_b = thr.multiparty_keygen_batched(mctx, THR_PARTIES, seed=1)
+    per_party = thr.PartySecrets(s=torch.stack([k.s for k in sks]),
+                                 s_shoup=torch.stack([k.s_shoup for k in sks]))
+    if not (_same_key(per_party, sec) and _same_key(pk, pk_b)):
+        raise AssertionError(f"batched keygen differs on {dev}")
+    cpu_sec, cpu_pk = thr.multiparty_keygen_batched(
+        P.make_context(mctx.params), THR_PARTIES, seed=1)
+    if not (torch.equal(sec.s.cpu(), cpu_sec.s)
+            and torch.equal(pk.p0.cpu(), cpu_pk.p0)):
+        raise AssertionError(f"threshold keygen on {dev} differs from the "
+                             f"CPU's")
+    rlk = thr.multiparty_relin_key(mctx, sks, common_seed=2, seed=1)
+    if not _same_key(rlk, thr.multiparty_relin_key_batched(
+            mctx, sec, common_seed=2, seed=1)):
+        raise AssertionError(f"batched relinearisation key differs on {dev}")
+    g = KS.galois_element(1, mctx.ring_dim)
+    gkeys = threefry.split(threefry.key(40, dev), THR_PARTIES)
+    shares = [thr.partial_galois_key(mctx, sk, g, 77, k)
+              for sk, k in zip(sks, gkeys)]
+    if not _same_key(thr.combine_switch_key_shares(mctx, shares),
+                     thr.multiparty_galois_key_batched(mctx, sec, g, 77,
+                                                       gkeys)):
+        raise AssertionError(f"batched Galois key differs on {dev}")
+
+
+def threshold_helper(cryptodir: pathlib.Path, dev, seed=6) -> ThresholdCKKS:
+    """The threshold helper of model_bench's --scheme ckks-threshold (batch
+    4096, 2^52, N 8192, not dense) with 3 parties."""
+    return ThresholdCKKS("ckks-threshold", THR_BATCH, 52,
+                         cryptodir=str(cryptodir), parties=THR_PARTIES,
+                         seed=seed, device=dev)
+
+
+def mkhe_setup(dev, n_values: int, seed=1):
+    """mkhe_bench's point (batch 4096, 2^51, depth 2: N 8192, chain 5 + 1
+    special prime) and seeded standard-normal values packed 4096 per chunk:
+    (ctx, values (n,) f32, packed (chunks, N) f32 on dev)."""
+    ctx = P.make_context(P.make_params(batch=4096, scale_bits=51,
+                                       mult_depth=2), dev)
+    v = np.random.default_rng(seed).standard_normal(n_values).astype(
+        np.float32)
+    chunks = -(-n_values // 4096)
+    pay = np.zeros(chunks * 4096, dtype=np.float32)
+    pay[:n_values] = v
+    buf = np.zeros((chunks, ctx.ring_dim), dtype=np.float32)
+    buf[:, :4096] = pay.reshape(chunks, 4096)
+    return ctx, v, torch.as_tensor(buf, device=dev)
+
+
+def run_threshold_path(h: ThresholdCKKS, cnn_vecs, mctx, mvals) -> dict:
+    """The keygen ceremony and every threshold entry once, then the mkhe
+    circuit under joint keys; returns {result: decrypted output}."""
+    w = API_WEIGHTS
+    n = cnn_vecs[0].size
+    dev = mvals.device
+    outs = {}
+    h.genCryptoContextAndKeyGen()
+    agg = h.computeWeightedAverage([h.encrypt(v) for v in cnn_vecs], w)
+    outs["bytes"] = h.decrypt(agg, n)
+    outs["round_fused"] = h.fedavg_round(cnn_vecs, w)
+    outs["round_staged"] = h.fedavg_round(cnn_vecs, w, fused=False)
+    parts = [h.partial_decrypt(i, agg) for i in range(h.parties)]
+    outs["partials_fused"] = h.fuse_partials(parts, agg, n)
+    outs["single_partial"] = h.fuse_partials(parts[:1], agg, n)
+
+    sec, pk = thr.multiparty_keygen_batched(mctx, THR_PARTIES, seed=1)
+    rlk = thr.multiparty_relin_key_batched(mctx, sec, common_seed=2, seed=1)
+    ct = ops.encrypt(mctx, pk, mvals, threefry.key(2, dev))
+    half = ops.mul_scalar(mctx, ct, 0.5)
+    ev = ops.add(mctx, half, half)
+    sq = ops.rescale(mctx, KS.mul_ct(mctx, ct, ct, rlk))
+    outs["mkhe_eval"] = thr.threshold_decrypt(
+        mctx, sec, ev, threefry.split(threefry.key(10, dev), THR_PARTIES))
+    outs["mkhe_square"] = thr.threshold_decrypt(
+        mctx, sec, sq, threefry.split(threefry.key(20, dev), THR_PARTIES))
+    torch.cuda.synchronize()
+    return outs
+
+
+def negacyclic_square(x: np.ndarray) -> np.ndarray:
+    """x * x mod X^N + 1 for rows of coefficients (..., N), in f64 by FFT:
+    the cyclic square of x twisted by exp(i pi k / N), untwisted."""
+    n = x.shape[-1]
+    tw = np.exp(1j * np.pi * np.arange(n) / n)
+    f = np.fft.fft(x * tw)
+    return (np.fft.ifft(f * f) / tw).real
+
+
+def check_threshold(outs: dict, want: np.ndarray, mvals: torch.Tensor,
+                    v: np.ndarray) -> dict:
+    """Every CNN result and the mkhe scalar circuit within MAX_ERR of the
+    plaintext; the first MKHE_CHECKED chunks of the ct x ct product within
+    MKHE_REL_BOUND x its largest value of the f64 negacyclic square; fewer
+    than 1% of the values a single share decodes to within 1e-3 of the
+    plaintext (NaN counts as far)."""
+    errs = {}
+    for name in ("bytes", "round_fused", "round_staged", "partials_fused"):
+        got = outs[name]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"threshold {name}: bad output {got.shape}")
+        errs[name] = float(np.max(np.abs(got - want)))
+    ev = outs["mkhe_eval"]
+    if tuple(ev.shape) != tuple(mvals.shape) or not bool(
+            torch.isfinite(ev).all()):
+        raise AssertionError(f"mkhe eval: bad output {tuple(ev.shape)}")
+    got = ev[:, :4096].cpu().numpy().reshape(-1)[:v.size]
+    errs["mkhe_eval"] = float(np.max(np.abs(got.astype(np.float64) - v)))
+    bad = {k: e for k, e in errs.items() if not e <= MAX_ERR}
+    if bad:
+        raise AssertionError(f"threshold path: max_err above {MAX_ERR}: {bad}")
+    sq = outs["mkhe_square"][:MKHE_CHECKED].cpu().numpy().astype(np.float64)
+    ref = negacyclic_square(mvals[:MKHE_CHECKED].cpu().numpy().astype(
+        np.float64))
+    bound = MKHE_REL_BOUND * float(np.max(np.abs(ref)))
+    errs["mkhe_square"] = float(np.max(np.abs(sq - ref)))
+    errs["mkhe_square_bound"] = bound
+    if not errs["mkhe_square"] <= bound:
+        raise AssertionError(f"mkhe ct x ct: max_err {errs['mkhe_square']} "
+                             f"> {bound}")
+    close = float(np.mean(np.abs(outs["single_partial"] - want) <= 1e-3))
+    errs["single_partial_close_share"] = close
+    if not close < 0.01:
+        raise AssertionError(f"one party's share decodes to the plaintext "
+                             f"({close:.3f} of the values within 1e-3)")
+    return errs
+
+
+def check_threshold_kernels(ctx, secrets, cts, gen, weights=None,
+                            reps=10) -> list[dict]:
+    """K1, K3 and K4 against their plain versions at the shapes the
+    threshold decrypt of each ciphertext in `cts` gives them: K1 on the
+    smudging batch (P, chunks, live, N) (uniform residues), K1 inverse on
+    the summed shares and K4 on their INTT (the real fusion inputs); with
+    `weights`, K3 on a (K, chunks, 2, L, N) stack as threshold_round_fused
+    forms it. Raises on any bit difference."""
+    recs = []
+    P_, dev = secrets.n_parties, gen.device
+    for ct in cts:
+        live, chunks, n = ct.live_limbs, ct.num_chunks, ctx.ring_dim
+        mt = ctx.tables.slice_limbs(0, live).mxu
+        x = uniform_mod_q(gen, (P_, chunks, live, n), ctx.params.moduli)
+        _record(recs, "ntt_mxu_fused", mxu_pallas.ntt_mxu_fused(x, mt),
+                mxu.ntt_mxu(x, mt), lambda: mxu_pallas.ntt_mxu_fused(x, mt),
+                lambda: mxu.ntt_mxu(x, mt), reps)
+        del x
+        parts = thr._partials(ctx, secrets, ct.data,
+                              threefry.split(threefry.key(50, dev), P_))
+        acc = thr._sum_parties(parts, ctx.q[:live, None]).to(torch.int32)
+        del parts
+        coeffs = mxu_pallas.intt_mxu_fused(acc, mt)
+        _record(recs, "intt_mxu_fused", coeffs, mxu.intt_mxu(acc, mt),
+                lambda: mxu_pallas.intt_mxu_fused(acc, mt),
+                lambda: mxu.intt_mxu(acc, mt), reps)
+        dc, qs = ctx.dec_consts[live - 1], ctx.q[:live]
+        _record(recs, "decode_fused",
+                pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale),
+                encoding.decode_core(dc, qs, coeffs, ct.scale),
+                lambda: pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale),
+                lambda: encoding.decode_core(dc, qs, coeffs, ct.scale), reps,
+                shape=coeffs.shape)
+    if weights is not None:
+        L = ctx.params.chain_len
+        moduli = ctx.params.moduli
+        stacked = uniform_mod_q(gen, (len(weights), cts[0].num_chunks, 2, L,
+                                      ctx.ring_dim), moduli)
+        w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
+        wr = torch.as_tensor(w_res, device=dev)
+        ws = torch.as_tensor(w_shoup, device=dev)
+        _record(recs, "weighted_sum_fused",
+                pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
+                                              moduli[:L]),
+                ops._weighted_sum_impl(ctx, stacked, wr, ws),
+                lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
+                                                      moduli[:L]),
+                lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
+                shape=stacked.shape)
+    return recs
+
+
+def masking_helpers(root: pathlib.Path, dev) -> list:
+    """MASK_LEARNERS Masking helpers on dev: one cryptodir, learner i's
+    randomness in root/rand<i>; learner 0 holds the Paillier secret key."""
+    hs = [Masking("paillier", MASK_LEARNERS, cryptodir=str(root / "crypto"),
+                  randomnessdir=str(root / f"rand{i}"), device=dev,
+                  **MASK_GEOMETRY) for i in range(MASK_LEARNERS)]
+    hs[0].genCryptoContextAndKeyGen()
+    for h in hs[1:]:
+        h.loadCryptoParams()
+    return hs
+
+
+def write_online_randomness(hs: list, n_values: int, iteration: int) -> None:
+    """Each learner's pad as genPaillierRandOffline draws it (os.urandom &
+    mask) and the ring sum mod 2**num_bits in every learner's directory:
+    what the offline protocol leaves behind, without the Paillier step."""
+    mask = (1 << MASK_GEOMETRY["num_bits"]) - 1
+    pads = []
+    for h in hs:
+        raw = np.frombuffer(os.urandom(4 * n_values), dtype="<u4")
+        pads.append((raw & mask).astype(np.uint32))
+        np.save(h._rand_path(iteration, "learner_rand.npy"), pads[-1])
+    r_sum = np.sum(pads, axis=0, dtype=np.uint32) & np.uint32(mask)
+    for h in hs:
+        np.save(h._rand_path(iteration, "learner_rand_sum.npy"), r_sum)
+
+
+def mask_vectors(n_values: int, seed: int):
+    """MASK_LEARNERS seeded flat f32 vectors (normal x 0.1), their f64 mean."""
+    rng = np.random.default_rng(seed)
+    vecs = [rng.standard_normal(n_values, dtype=np.float32) * np.float32(0.1)
+            for _ in range(MASK_LEARNERS)]
+    return vecs, np.mean(np.stack(vecs).astype(np.float64), axis=0)
+
+
+def run_masking_path(hs: list, off_vecs, on_vecs) -> dict:
+    """The offline protocol at len(off_vecs[0]) values (iteration 0: every
+    learner's encrypted pad, their homomorphic sum, its decryption, and a
+    dropout recovery over learners 0, 2, 3) with one online round on it,
+    then the online round at len(on_vecs[0]) values (iteration 1, pads from
+    write_online_randomness). On the card, the fixed-point codes, masked
+    values and their sum are CUDA tensors."""
+    n_off, n_on = off_vecs[0].size, on_vecs[0].size
+    outs = {}
+    blobs = [h.genPaillierRandOffline(n_off, iteration=0) for h in hs]
+    hs[0].decryptRandomnessSum(hs[0].addPaillierRandOffline(blobs), n_off,
+                               iteration=0)
+    masked = [h.encrypt(v, iteration=0) for h, v in zip(hs, off_vecs)]
+    outs["offline_round"] = hs[0].decrypt(
+        hs[0].computeWeightedAverage(masked), n_off, iteration=0)
+    survivors = [0, 2, 3]
+    hs[0].recoverRandomnessSubset(blobs, n_off, iteration=0,
+                                  subset=survivors)
+    outs["dropout_round"] = hs[0].decrypt(
+        hs[0].computeWeightedAverage([masked[i] for i in survivors]), n_off,
+        iteration=0, subset=survivors)
+
+    w = [1.0 / MASK_LEARNERS] * MASK_LEARNERS
+    masked = [h.encrypt(v, iteration=1) for h, v in zip(hs, on_vecs)]
+    agg = hs[0].computeWeightedAverage(masked, w)
+    outs["online_round"] = hs[0].decrypt(agg, n_on, iteration=1)
+
+    h = hs[0]
+    geo = MASK_GEOMETRY
+    fixed = M.fixed_point_encode(h._tensor(on_vecs[0]), geo["num_bits"],
+                                 geo["precision_bits"])
+    r = np.load(h._rand_path(1, "learner_rand.npy")).astype(np.int64)
+    masked0 = M.mask_values(fixed, h._tensor(r), h._ring_mask)
+    summed = M.sum_masked(h._tensor(np.stack([M._from_wire(b)
+                                              for b in masked])),
+                          h._ring_mask)
+    torch.cuda.synchronize()
+    for name, t in (("encoded", fixed), ("masked", masked0),
+                    ("summed", summed)):
+        if t.device != h.device:
+            raise AssertionError(f"masking: {name} values on {t.device}, "
+                                 f"helper on {h.device}")
+    if M._to_wire(masked0) != masked[0] or M._to_wire(summed) != agg:
+        raise AssertionError("masking: device tensors differ from the blobs")
+    return outs
+
+
+def check_masking(outs: dict, off_vecs, on_vecs, hs: list) -> dict:
+    """Each round within MASK_LEARNERS x 2**-precision of the plaintext
+    mean (tests/test_masking.py's bound); the online output equals a CPU
+    helper's bit for bit on the same randomness files."""
+    bound = MASK_LEARNERS * 2.0 ** -MASK_GEOMETRY["precision_bits"]
+    off_mean = np.mean(np.stack(off_vecs).astype(np.float64), axis=0)
+    drop_mean = np.mean(np.stack([off_vecs[i] for i in (0, 2, 3)]).astype(
+        np.float64), axis=0)
+    on_mean = np.mean(np.stack(on_vecs).astype(np.float64), axis=0)
+    errs = {}
+    for name, want in (("offline_round", off_mean),
+                       ("dropout_round", drop_mean),
+                       ("online_round", on_mean)):
+        got = outs[name]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"masking {name}: bad output {got.shape}")
+        errs[name] = float(np.max(np.abs(got - want)))
+    bad = {k: e for k, e in errs.items() if not e <= bound}
+    if bad:
+        raise AssertionError(f"masking path: max_err above {bound}: {bad}")
+    cpu = Masking("paillier", MASK_LEARNERS, cryptodir=hs[0].cryptodir,
+                  randomnessdir=hs[0].randomnessdir, **MASK_GEOMETRY)
+    blob = cpu.encrypt(on_vecs[0], iteration=1)
+    agg = cpu.computeWeightedAverage(
+        [blob] + [h.encrypt(v, iteration=1) for h, v in zip(hs[1:],
+                                                            on_vecs[1:])])
+    if not np.array_equal(cpu.decrypt(agg, on_vecs[0].size, iteration=1),
+                          hs[0].decrypt(agg, on_vecs[0].size, iteration=1)):
+        raise AssertionError("masking: the card's decrypt differs from the "
+                             "CPU's")
+    if blob != hs[0].encrypt(on_vecs[0], iteration=1):
+        raise AssertionError("masking: the card's masked blob differs from "
+                             "the CPU's")
+    errs["bound"] = bound
+    return errs
+
+
 def drive(name, fn):
     """Run one path with the launch counts at 0 before, read after; raise
     if a kernel of the path was not launched."""
@@ -571,12 +944,159 @@ def profile(out_dir: pathlib.Path, runs: dict) -> dict:
     return device_us
 
 
+def threshold_path(dev, gpu: str, cnn_vecs, cnn_want: np.ndarray,
+                   profile_dir: pathlib.Path | None = None
+                   ) -> tuple[collections.Counter, list[dict]]:
+    """Known answers, the threshold path under drive() and its checks, the
+    kernels held at the path's shapes, then each threshold and mkhe phase
+    timed after a warm-up (and, with profile_dir, the fused threshold round
+    and its smudging step traced). Returns the path's launch counts and the
+    kernel records."""
+    n = cnn_vecs[0].size
+    t0 = time.perf_counter()
+    mctx, mkhe_v, mkhe_vals = mkhe_setup(dev, n)
+    check_threshold_known_answers(mctx)
+    th = threshold_helper(ROOT / "build" / "threshold_cryptodir", dev)
+    print(f"threshold setup: parties={THR_PARTIES} batch={THR_BATCH} "
+          f"chunks={-(-n // THR_BATCH)}; mkhe N={mctx.ring_dim} "
+          f"chain={mctx.params.chain_len} limbs={mctx.num_limbs} chunks="
+          f"{mkhe_vals.shape[0]}; known answers on {dev} (batched == "
+          f"per-party keygen, relin key, Galois key; keygen == CPU): ok "
+          f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    thr_outs, thr_counts = drive("threshold", lambda: run_threshold_path(
+        th, cnn_vecs, mctx, mkhe_vals))
+    thr_errs = check_threshold(thr_outs, cnn_want, mkhe_vals, mkhe_v)
+    print(f"threshold path: max_err {json.dumps(thr_errs)} launches "
+          f"{thr_counts}", flush=True)
+    del thr_outs
+    keygen_ms = cuda_ms(th.genCryptoContextAndKeyGen, 2)
+    thr_blobs = [th.encrypt(v) for v in cnn_vecs]
+    thr_agg = th.computeWeightedAverage(thr_blobs, API_WEIGHTS)
+    parts = [th.partial_decrypt(i, thr_agg) for i in range(THR_PARTIES)]
+    msks, _ = thr.multiparty_keygen(mctx, THR_PARTIES, seed=1)
+    msec, mpk = thr.multiparty_keygen_batched(mctx, THR_PARTIES, seed=1)
+    mrlk = thr.multiparty_relin_key_batched(mctx, msec, common_seed=2, seed=1)
+    mct = ops.encrypt(mctx, mpk, mkhe_vals, threefry.key(2, dev))
+    mkeys = threefry.split(threefry.key(30, dev), THR_PARTIES)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    recs = check_threshold_kernels(th.ctx, th._secrets,
+                                   [th._deserialize(thr_agg)], gen,
+                                   API_WEIGHTS)
+    recs += check_threshold_kernels(
+        mctx, msec, [mct, ops.rescale(mctx, KS.mul_ct(mctx, mct, mct, mrlk))],
+        gen)
+    print_records(recs, gpu)
+
+    def mkhe_eval():
+        half = ops.mul_scalar(mctx, mct, 0.5)
+        return ops.add(mctx, half, half)
+
+    thr_phases = {
+        "thr_encrypt_per_client": lambda: th.encrypt(cnn_vecs[0]),
+        "thr_computeWeightedAverage": lambda: th.computeWeightedAverage(
+            thr_blobs, API_WEIGHTS),
+        "thr_decrypt": lambda: th.decrypt(thr_agg, n),
+        "thr_partial_decrypt": lambda: th.partial_decrypt(1, thr_agg),
+        "thr_fuse_partials": lambda: th.fuse_partials(parts, thr_agg, n),
+        "thr_round_fused": lambda: th.fedavg_round(cnn_vecs, API_WEIGHTS),
+        "thr_round_staged": lambda: th.fedavg_round(cnn_vecs, API_WEIGHTS,
+                                                    fused=False),
+        "mkhe_keygen_batched": lambda: thr.multiparty_keygen_batched(
+            mctx, THR_PARTIES, seed=1),
+        "mkhe_keygen_per_party": lambda: thr.multiparty_keygen(
+            mctx, THR_PARTIES, seed=1),
+        "mkhe_relin_key_batched": lambda: thr.multiparty_relin_key_batched(
+            mctx, msec, common_seed=2, seed=1),
+        "mkhe_relin_key_per_party": lambda: thr.multiparty_relin_key(
+            mctx, msks, common_seed=2, seed=1),
+        "mkhe_encrypt": lambda: ops.encrypt(mctx, mpk, mkhe_vals,
+                                            threefry.key(2, dev)),
+        "mkhe_eval": mkhe_eval,
+        "mkhe_mul_relin_rescale": lambda: ops.rescale(
+            mctx, KS.mul_ct(mctx, mct, mct, mrlk)),
+        "mkhe_threshold_decrypt": lambda: thr.threshold_decrypt(
+            mctx, msec, mct, mkeys),
+    }
+    print(f"phase thr_keygen_ceremony_ms: {keygen_ms:.4f} ({gpu})",
+          flush=True)
+    for k, fn in thr_phases.items():
+        print(f"phase {k}_ms: {cuda_ms(fn, 2):.4f} ({gpu})", flush=True)
+    if profile_dir is not None:
+        chunks = -(-n // THR_BATCH)
+        dec_keys = threefry.split(threefry.key(31, dev), THR_PARTIES)
+        us = profile(profile_dir, {
+            "thr_round_fused": lambda: th.fedavg_round(cnn_vecs, API_WEIGHTS),
+            "thr_smudging": lambda: thr._smudge(th.ctx, dec_keys, chunks,
+                                                th.ctx.params.chain_len)})
+        print(f"profile smudging share of the fused threshold round's device "
+              f"time: {us['thr_smudging'] / us['thr_round_fused']:.4f} "
+              f"({gpu})", flush=True)
+    del thr_blobs, parts, msks, msec, mpk, mrlk, mct, mctx, mkhe_vals
+    return thr_counts, recs
+
+
+def masking_path(dev, gpu: str, n_values: int = CNN_PARAMS
+                 ) -> collections.Counter:
+    """The masking path under drive() with the online round at n_values
+    and its checks, then its offline (host) and online phases timed after a
+    warm-up. Returns the path's launch counts (none: it runs no kernel of
+    ours)."""
+    t0 = time.perf_counter()
+    mhs = masking_helpers(ROOT / "build" / "masking", dev)
+    mask_keygen_s = time.perf_counter() - t0
+    if any(h.device.type != "cuda" for h in mhs):
+        raise AssertionError("masking helpers are not on the card")
+    off_vecs, _ = mask_vectors(MASK_OFFLINE_VALUES, 20)
+    on_vecs, _ = mask_vectors(n_values, 21)
+    write_online_randomness(mhs, n_values, 1)
+    print(f"masking setup: learners={MASK_LEARNERS} {MASK_GEOMETRY} "
+          f"threads={paillier.num_threads()} offline={MASK_OFFLINE_VALUES} "
+          f"values online={n_values} values paillier_keygen_s="
+          f"{mask_keygen_s:.3f}", flush=True)
+    mask_outs, mask_counts = drive("masking", lambda: run_masking_path(
+        mhs, off_vecs, on_vecs))
+    mask_errs = check_masking(mask_outs, off_vecs, on_vecs, mhs)
+    print(f"masking path on {mhs[0].device}: max_err {json.dumps(mask_errs)}"
+          f" launches {mask_counts}", flush=True)
+
+    def host_s(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    gen = [host_s(lambda h=h: h.genPaillierRandOffline(MASK_OFFLINE_VALUES,
+                                                       2)) for h in mhs]
+    add_s, enc_sum = host_s(lambda: mhs[0].addPaillierRandOffline(
+        [b for _, b in gen]))
+    dec_s, _ = host_s(lambda: mhs[0].decryptRandomnessSum(
+        enc_sum, MASK_OFFLINE_VALUES, 2))
+    print(f"phase mask_offline_gen_per_learner_s: "
+          f"{sum(s for s, _ in gen) / len(gen):.4f} mask_offline_add_s: "
+          f"{add_s:.4f} mask_offline_decrypt_sum_s: {dec_s:.4f} "
+          f"({MASK_OFFLINE_VALUES} values, host) ({gpu})", flush=True)
+    masked = [h.encrypt(v, iteration=1) for h, v in zip(mhs, on_vecs)]
+    mask_agg = mhs[0].computeWeightedAverage(masked)
+    mask_phases = {
+        "mask_encrypt_per_learner": lambda: mhs[1].encrypt(on_vecs[1],
+                                                           iteration=1),
+        "mask_computeWeightedAverage": lambda: mhs[0].computeWeightedAverage(
+            masked),
+        "mask_decrypt": lambda: mhs[0].decrypt(mask_agg, n_values,
+                                               iteration=1),
+    }
+    for k, fn in mask_phases.items():
+        print(f"phase {k}_ms: {cuda_ms(fn, 3):.4f} ({gpu})", flush=True)
+    return mask_counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=pathlib.Path, default=None,
                     help="write torch.profiler tables of one rotation, one "
                          "batch multiply, one API encrypt and its threefry "
-                         "sampling to this directory")
+                         "sampling, one fused threshold round and its "
+                         "smudging step to this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -619,10 +1139,7 @@ def main() -> int:
     recs = check_kernels(ctx, sk, values, weights, gen)
     recs += check_repairs(ctx, gen, chunks, 64, deep_ctx)
     recs += check_butterfly(rot_ctx, ctx, gen, 64)
-    for r in recs:
-        print(f"kernel {r['name']} {r['shape']}: bit-exact, "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms ({gpu})",
-              flush=True)
+    print_records(recs, gpu)
     print(f"kernel ntt_fused == ntt_mxu_fused at N={n} (fwd and inv): "
           f"bit-exact", flush=True)
     del deep_ctx
@@ -779,8 +1296,14 @@ def main() -> int:
               f"{us['threefry_sampling'] / us['api_encrypt']:.4f} ({gpu})",
               flush=True)
 
+    thr_counts, thr_recs = threshold_path(dev, gpu, cnn_vecs, cnn_want,
+                                          args.profile)
+    recs += thr_recs
+    mask_counts = masking_path(dev, gpu)
+
     launches = collections.Counter()
-    for c in (fed_counts, rot_counts, mult_counts, api_counts):
+    for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
+              mask_counts):
         launches.update(c)
     for r in recs:
         r["launches"] = launches[r["name"]]

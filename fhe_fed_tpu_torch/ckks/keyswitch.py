@@ -64,25 +64,33 @@ def _ext_indices(ctx: CkksContext, live: int) -> np.ndarray:
     return np.array(list(range(live)) + [ctx.num_limbs - 1])
 
 
+def ks_payload(ctx: CkksContext, target_hat: torch.Tensor) -> torch.Tensor:
+    """The gadget payload of a switching key from `target_hat` (..., L, N):
+    limb j of row j holds [P]_{q_j} * target, every other limb 0. Returns
+    (..., chain, L, N) int64 (int64, so the product with the identity
+    pattern cannot wrap)."""
+    chain, L = ctx.params.chain_len, ctx.num_limbs
+    dev = target_hat.device
+    p_mod, p_mod_shoup, _, _ = _ks_consts(ctx.params)
+    pt = modops.mul_mod_shoup(
+        target_hat[..., :chain, :],
+        torch.as_tensor(p_mod, device=dev)[:, None],
+        torch.as_tensor(p_mod_shoup, device=dev)[:, None],
+        ctx.q[:chain, None])                               # (..., chain, N)
+    eye = torch.eye(chain, L, dtype=torch.int64, device=dev)[:, :, None]
+    return pt[..., :, None, :] * eye
+
+
 def make_kswitch_key_core(ctx: CkksContext, sk: SecretKey,
                           target_hat: torch.Tensor, a: torch.Tensor,
                           e_coeffs: torch.Tensor) -> KSwitchKey:
     """Key switching FROM `target_hat` (L, N), eval domain, TO sk, from a
     uniform `a` (chain, L, N) and small errors `e_coeffs` (chain, N)."""
-    L = ctx.num_limbs
-    chain = ctx.params.chain_len
     qb = ctx.q[:, None]
-    dev = a.device
-    p_mod, p_mod_shoup, _, _ = _ks_consts(ctx.params)
     e_hat = ntt_mod.ntt(lift_signed(e_coeffs, ctx.q), ctx.tables)
     a_s = modops.mul_mod_shoup(a, sk.s[None], sk.s_shoup[None], qb)
     b = modops.add_mod(modops.neg_mod(a_s, qb), e_hat, qb)
-    # Payload: limb j of row j gets [P]_{q_j} * target.
-    pt = modops.mul_mod_shoup(
-        target_hat[:chain], torch.as_tensor(p_mod, device=dev)[:, None],
-        torch.as_tensor(p_mod_shoup, device=dev)[:, None], qb[:chain])
-    eye = torch.eye(chain, L, dtype=torch.int64, device=dev)[:, :, None]
-    b = modops.add_mod(b, pt[:, None, :] * eye, qb).to(_I32)
+    b = modops.add_mod(b, ks_payload(ctx, target_hat), qb).to(_I32)
     a = a.to(_I32)
     return KSwitchKey(b=b, b_shoup=modops.shoup_tensor(b, qb),
                       a=a, a_shoup=modops.shoup_tensor(a, qb))

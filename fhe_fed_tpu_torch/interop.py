@@ -16,6 +16,7 @@ import torch
 from .ckks.keys import SecretKey, PublicKey
 from .ckks.ops import Ciphertext, SeededCiphertext
 from .ckks.keyswitch import KSwitchKey
+from .ckks.threshold import PartySecrets
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
@@ -95,3 +96,9 @@ def kswitch_key_from_numpy(b, b_shoup, a, a_shoup,
     """A relinearisation or Galois key's (dnum, L, N) rows -> KSwitchKey."""
     return KSwitchKey(**context_arrays_from_numpy(
         dict(b=b, b_shoup=b_shoup, a=a, a_shoup=a_shoup), device))
+
+
+def party_secrets_from_numpy(s, s_shoup, device="cpu") -> PartySecrets:
+    """Threshold shares (P, L, N) and their Shoup words -> PartySecrets."""
+    return PartySecrets(**context_arrays_from_numpy(
+        dict(s=s, s_shoup=s_shoup), device))

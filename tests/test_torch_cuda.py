@@ -7,8 +7,9 @@ host run them with
 They repeat chip_smoke.py's phases at smaller sizes, plus the shapes and
 options the paths do not reach (small rings, K > 8, every live-limb count
 of the decode, both NTT kernels on one ring), and hold the threefry
-sampling, the CKKS bytes surface and the FFTS expansion on the card equal
-to the CPU.
+sampling, the CKKS bytes surface, the FFTS expansion, the threshold
+ceremonies and the masking scheme's online phase on the card equal to the
+CPU.
 """
 
 import dataclasses
@@ -276,3 +277,104 @@ def test_api_path_small(dev, tmp_path):
     errs = chip_smoke.check_api(outs, dict(cnn=cnn[1], bert=bert[1],
                                            slots=slot[1]), blobs, sds, dev)
     assert errs["ffts_over_fftc"] <= chip_smoke.FFTS_RATIO
+
+
+def test_threshold_ceremonies_on_card_equal_cpu(dev):
+    """Batched keygen, the stacked threshold decrypt and the fused
+    threshold round on the card (K1, K3, K4) equal the CPU bit for bit."""
+    from fhe_fed_tpu_torch.ckks import threshold as thr
+    params = P.make_params(batch=128, scale_bits=40, mult_depth=1,
+                           ring_dim=256)
+    cpu, gpu = P.make_context(params), P.make_context(params, dev)
+    (csec, cpk), (gsec, gpk) = (thr.multiparty_keygen_batched(c, 3, seed=3)
+                                for c in (cpu, gpu))
+    assert torch.equal(gsec.s.cpu(), csec.s)
+    assert torch.equal(gpk.p0_shoup.cpu(), cpk.p0_shoup)
+    vals = torch.randn((3, 2, 256), generator=torch.Generator().manual_seed(1))
+    cuda_lib.launches.clear()
+    got = thr.threshold_round_fused(gpu, gsec, gpk, vals.to(dev),
+                                    TF.key(7, dev), TF.split(TF.key(8, dev), 3),
+                                    [0.5, 0.2, 0.3])
+    want = thr.threshold_round_fused(cpu, csec, cpk, vals, TF.key(7),
+                                     TF.split(TF.key(8), 3), [0.5, 0.2, 0.3])
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert all(cuda_lib.launches[k] > 0
+               for k in chip_smoke.PATH_KERNELS["threshold"])
+    ct = ops.encrypt(cpu, cpk, vals[0], TF.key(9))
+    gct = dataclasses.replace(ct, data=ct.data.to(dev))
+    keys_c, keys_g = TF.split(TF.key(10), 3), TF.split(TF.key(10, dev), 3)
+    assert torch.equal(
+        thr.partial_decrypt_stacked(gpu, gsec, gct, keys_g).cpu(),
+        thr.partial_decrypt_stacked(cpu, csec, ct, keys_c))
+    assert torch.equal(
+        thr.threshold_decrypt(gpu, gsec, gct, keys_g).cpu().view(torch.int32),
+        thr.threshold_decrypt(cpu, csec, ct, keys_c).view(torch.int32))
+
+
+def test_threshold_path_small(dev, tmp_path):
+    """chip_smoke's threshold path with 20,000-value vectors (5 chunks)."""
+    n = 20000
+    mctx, v, mvals = chip_smoke.mkhe_setup(dev, n)
+    chip_smoke.check_threshold_known_answers(mctx)
+    h = chip_smoke.threshold_helper(tmp_path / "thr", dev)
+    cnn, want = chip_smoke.api_vectors(n, 10)
+    outs, _ = chip_smoke.drive("threshold", lambda: (
+        chip_smoke.run_threshold_path(h, cnn, mctx, mvals)))
+    errs = chip_smoke.check_threshold(outs, want, mvals, v)
+    assert errs["mkhe_square"] <= errs["mkhe_square_bound"]
+    agg = h.computeWeightedAverage([h.encrypt(x) for x in cnn],
+                                   chip_smoke.API_WEIGHTS)
+    recs = chip_smoke.check_threshold_kernels(
+        h.ctx, h._secrets, [h._deserialize(agg)], _gen(dev),
+        chip_smoke.API_WEIGHTS, reps=1)
+    assert [r["name"] for r in recs] == [
+        "ntt_mxu_fused", "intt_mxu_fused", "decode_fused",
+        "weighted_sum_fused"]
+    assert [r["max_abs_err"] for r in recs] == [0.0] * 4
+
+
+def test_masking_online_on_card_equal_cpu(dev, tmp_path):
+    """The fixed-point codec (edge values included), the masked blobs, their
+    sum and the decrypt on the card equal the CPU's on the same files."""
+    from fhe_fed_tpu_torch import Masking
+    from fhe_fed_tpu_torch.fed import masking as M
+    x = torch.tensor([float("nan"), float("inf"), -float("inf"), 3e9, -3e9,
+                      0.5 * 2 ** -13, -0.5 * 2 ** -13, 1.5 * 2 ** -13, 0.123,
+                      -7.9, 100.0])
+    enc = M.fixed_point_encode(x.to(dev), 17, 13)
+    assert enc.is_cuda and torch.equal(enc.cpu(), M.fixed_point_encode(x, 17,
+                                                                        13))
+    ring = torch.randint(0, 1 << 17, (1000,), generator=torch.Generator()
+                         .manual_seed(3))
+    for d in (1, 3, 4):
+        assert torch.equal(
+            M.fixed_point_decode(ring.to(dev), 17, 13, d).cpu().view(
+                torch.int32),
+            M.fixed_point_decode(ring, 17, 13, d).view(torch.int32))
+    hs = {d.type: [Masking("paillier", 2, modulus_bits=512,
+                           cryptodir=str(tmp_path / "crypto"),
+                           randomnessdir=str(tmp_path / f"rand{i}"), device=d)
+                   for i in range(2)] for d in (torch.device("cpu"), dev)}
+    chip_smoke.write_online_randomness(hs["cpu"], 5000, 1)
+    data = [np.random.default_rng(i).standard_normal(5000).astype(np.float32)
+            for i in range(2)]
+    blobs = {k: [h.encrypt(v, iteration=1) for h, v in zip(hl, data)]
+             for k, hl in hs.items()}
+    assert blobs["cpu"] == blobs["cuda"]
+    aggs = {k: hs[k][0].computeWeightedAverage(b) for k, b in blobs.items()}
+    assert aggs["cpu"] == aggs["cuda"]
+    np.testing.assert_array_equal(
+        hs["cpu"][0].decrypt(aggs["cpu"], 5000, iteration=1),
+        hs["cuda"][0].decrypt(aggs["cuda"], 5000, iteration=1))
+
+
+def test_masking_path_small(dev, tmp_path):
+    """chip_smoke's masking path with a 20,000-value online round."""
+    hs = chip_smoke.masking_helpers(tmp_path, dev)
+    off, _ = chip_smoke.mask_vectors(chip_smoke.MASK_OFFLINE_VALUES, 20)
+    on, _ = chip_smoke.mask_vectors(20000, 21)
+    chip_smoke.write_online_randomness(hs, 20000, 1)
+    outs, counts = chip_smoke.drive("masking", lambda: (
+        chip_smoke.run_masking_path(hs, off, on)))
+    errs = chip_smoke.check_masking(outs, off, on, hs)
+    assert max(errs[k] for k in outs) <= errs["bound"]
