@@ -9,13 +9,20 @@ Phases (each raises on failure, so the script exits non-zero):
      into build/fhe_fed_tpu_torch/);
   3. hold every kernel against its plain PyTorch version, bit-exactly, at
      the shapes the paths give it, and time both with CUDA events: K1, K3
-     and K4 at the FedAvg shapes, K3 also at 64 clients, K4 also at 11 live
-     limbs, K2 at the rotation path's shapes and a 64-chunk batch, and K2
-     against K1 at N = 8192 (the threshold path's shapes are held in
-     phase 9);
+     and K4 at the FedAvg shapes, K1 at each of the multiply path's six
+     calls for its 2048 ciphertexts (the key switch's inverse and its
+     forward over the extended basis, ModDown's inverse on the special
+     prime and its forward, the rescale's inverse and forward), K1 at
+     N = 2048 (the mma_sync body by the shape rule), K3 also at 64 clients,
+     K4 also at 11 live limbs, K2 at the rotation path's shapes and a
+     64-chunk batch, and K2 against K1 at N = 8192 (the threshold path's
+     shapes are held in phase 9). Each record carries its bound (bytes over
+     3.35 TB/s, int8 operations over 1,979 TOP/s) and, for K1, the
+     torch._int_mm yardstick of its digit products (gemm_library_ms);
   4. the FedAvg path at the bench configuration (CNN_OriginalFedAvg,
      1,663,370 parameters x 3 clients, batch 4096 / scale 2^52 / N 8192,
-     204 dense chunks) with the committed keys: secret-key encrypt ->
+     204 dense chunks) with the committed keys, its context and keys made
+     with no device given (the default: the card): secret-key encrypt ->
      weighted sum -> decrypt, the public-key encrypt path, and the fused
      round; max_err <= 1e-6 against the plaintext weighted average;
   5. the rotation path (BASELINE config 4: N 32768, chain 8 + 1 special
@@ -110,6 +117,7 @@ from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
 from fhe_fed_tpu_torch.fed import masking as M
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 from fhe_fed_tpu_torch.native import paillier
+from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.utils import threefry
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -193,15 +201,70 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# The least time the card could take (bound_ms): the larger of the bytes a
+# call must move (each input read once, each output written once) over the
+# HBM rate and its tensor-core operations over the int8 rate (NVIDIA H100
+# SXM data sheet, dense, 700 W). K2, K3 and K4 run on the CUDA cores, whose
+# integer rate the data sheet does not give: their bound is bytes alone.
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+
+
+def io_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k1_work(x: torch.Tensor, mt, forward: bool) -> tuple[int, int]:
+    """K1's int8 tensor-core operations (2 per multiply-add of both digit
+    products) and bytes (the residues in and out, the tables it reads)."""
+    L, n = x.shape[-2], x.shape[-1]
+    polys = x.numel() // n
+    n1, n2 = mt.n1, mt.n2
+    macs = polys * (n2 * (4 * n1) ** 2 + n1 * (4 * n2) ** 2)
+    tabs, _, _ = mxu_pallas.operands(mt, forward)
+    return 2 * macs, 2 * io_bytes(x) + io_bytes(*tabs)
+
+
+def bound(work: tuple[int, int]) -> tuple[float, str]:
+    ops, nbytes = work
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def k1_gemm_library_ms(shape, mt, forward: bool, gen, reps=10) -> float:
+    """Yardstick for K1's tensor-core part only, never called by the port:
+    torch._int_mm (cuBLAS int8) over the same digit products as K1 on
+    `shape` (B, L, N), both stages, summed over the limbs. Not K1's
+    function: no reassembly, twiddle, digit split or transpose."""
+    B, L = shape[0], shape[1]
+    n1, n2 = mt.n1, mt.n2
+    dev = gen.device
+    mats = []
+    for rows, S in (((n2, n1), (n1, n2)) if forward else ((n1, n2), (n2, n1))):
+        a = torch.randint(-128, 128, (B * rows, 4 * S), generator=gen,
+                          device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (4 * S, 4 * S), generator=gen,
+                          device=dev, dtype=torch.int8)
+        mats.append((a, w.t().contiguous().t()))      # column-major B
+
+    def run():
+        for _ in range(L):
+            for a, w in mats:
+                torch._int_mm(a, w)
+    return cuda_ms(run, reps)
+
+
 def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def _record(recs, name, got, want, fn, plain_fn, reps, plain_reps=3,
-            shape=None):
+def _record(recs, name, got, want, fn, plain_fn, reps, work, plain_reps=3,
+            shape=None, **extra):
     """Raise unless `got` equals `want` bit for bit; else append the
     kernel's record (`shape`: its input's, by default the output's) with
-    both times."""
+    both times and the bound of `work` (ops, bytes); `extra` keys too (K1:
+    its body)."""
     torch.cuda.synchronize()
     if got.dtype == torch.float32:
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -212,18 +275,22 @@ def _record(recs, name, got, want, fn, plain_fn, reps, plain_reps=3,
         raise AssertionError(f"{name} {tuple(got.shape)}: kernel differs from "
                              f"its plain version (max_abs_err {err})")
     src, rep = KERNELS[name]
+    bound_ms, bound_by = bound(work)
     recs.append(dict(name=name, route="cuda", source=src, replaces=rep,
                      shape=list(got.shape if shape is None else shape),
                      max_abs_err=err,
                      ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain_fn,
-                                                            plain_reps)))
+                                                            plain_reps),
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                     **extra))
 
 
 def print_records(recs: list[dict], gpu: str) -> None:
     for r in recs:
-        print(f"kernel {r['name']} {r['shape']}: bit-exact, "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms ({gpu})",
-              flush=True)
+        body = f" [{r['body']}]" if "body" in r else ""
+        print(f"kernel {r['name']}{body} {r['shape']}: bit-exact, "
+              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) ({gpu})", flush=True)
 
 
 def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
@@ -235,29 +302,30 @@ def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
     mt = ctx.tables.mxu.slice_limbs(0, L)
     recs = []
 
-    def record(name, got, want, fn, plain_fn, shape=None):
-        _record(recs, name, got, want, fn, plain_fn, reps, shape=shape)
+    def record(name, got, want, fn, plain_fn, work, shape=None, **extra):
+        _record(recs, name, got, want, fn, plain_fn, reps, work, shape=shape,
+                **extra)
 
     x = uniform_mod_q(gen, (K * chunks, L, n), moduli)
-    record("ntt_mxu_fused", mxu_pallas.ntt_mxu_fused(x, mt),
-           mxu.ntt_mxu(x, mt), lambda: mxu_pallas.ntt_mxu_fused(x, mt),
-           lambda: mxu.ntt_mxu(x, mt))
     xe = uniform_mod_q(gen, (chunks, L, n), moduli)
-    record("intt_mxu_fused", mxu_pallas.intt_mxu_fused(xe, mt),
-           mxu.intt_mxu(xe, mt), lambda: mxu_pallas.intt_mxu_fused(xe, mt),
-           lambda: mxu.intt_mxu(xe, mt))
+    for fwd, xi in ((True, x), (False, xe)):
+        kern, plain = k1_pair(fwd)
+        record(kern.__name__, kern(xi, mt), plain(xi, mt),
+               lambda: kern(xi, mt), lambda: plain(xi, mt),
+               k1_work(xi, mt, fwd), **k1_extra(mt),
+               gemm_library_ms=k1_gemm_library_ms(xi.shape, mt, fwd, gen))
 
     stacked = uniform_mod_q(gen, (K, chunks, 2, L, n), moduli)
     w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
     wr = torch.as_tensor(w_res, device=stacked.device)
     ws = torch.as_tensor(w_shoup, device=stacked.device)
-    record("weighted_sum_fused",
-           pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L]),
+    got = pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L])
+    record("weighted_sum_fused", got,
            ops._weighted_sum_impl(ctx, stacked, wr, ws),
            lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
                                                  moduli[:L]),
            lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws),
-           stacked.shape)
+           (0, io_bytes(stacked, got)), stacked.shape)
 
     # Real decrypt residues of an aggregated round.
     agg = ops.weighted_sum(
@@ -265,10 +333,78 @@ def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
     res = ops.decrypt_residues(ctx, sk, agg)
     dc = ctx.dec_consts[L - 1]
     qs = ctx.q[:L]
-    record("decode_fused", pallas_decode.decode_fused(ctx, dc, res, agg.scale),
-           encoding.decode_core(dc, qs, res, agg.scale),
+    got = pallas_decode.decode_fused(ctx, dc, res, agg.scale)
+    record("decode_fused", got, encoding.decode_core(dc, qs, res, agg.scale),
            lambda: pallas_decode.decode_fused(ctx, dc, res, agg.scale),
-           lambda: encoding.decode_core(dc, qs, res, agg.scale), res.shape)
+           lambda: encoding.decode_core(dc, qs, res, agg.scale),
+           (0, io_bytes(res, got)), res.shape)
+    return recs
+
+
+def k1_pair(forward: bool):
+    """K1's wrapper and its plain version for one direction."""
+    return ((mxu_pallas.ntt_mxu_fused, mxu.ntt_mxu) if forward
+            else (mxu_pallas.intt_mxu_fused, mxu.intt_mxu))
+
+
+def k1_extra(mt) -> dict:
+    """K1 records name the body the shape rule runs."""
+    return dict(body=mt.body)
+
+
+def chunked(fn, rows: int = 512):
+    """fn(x, mt) over slices of `rows` along x's first axis, concatenated:
+    the plain NTT keeps ~40 bytes per coefficient alive, too much for the
+    multiply path's batches in one call."""
+    return lambda x, mt: torch.cat([fn(x[i:i + rows], mt)
+                                    for i in range(0, x.shape[0], rows)])
+
+
+def check_multiply_kernels(ctx, gen, batch, reps=10) -> list[dict]:
+    """K1 at every call the multiply path (mul_ct + relinearise + rescale
+    of `batch` pairs) makes, on the tables it passes: key_switch's inverse
+    and its forward over the extended basis (MxuNttTables.take: the chain
+    and the special prime), ModDown's inverse on the special prime alone
+    and its forward, the rescale's inverse on the top limb and its forward.
+    Uniform residues; bit-exact against the plain version, timed."""
+    L, top, n = ctx.params.chain_len, ctx.num_limbs - 1, ctx.ring_dim
+    ext = list(range(L)) + [top]
+    tab = ctx.tables
+    calls = (   # forward, tables, input shape, limbs of the input
+        (False, tab.slice_limbs(0, L), (batch, L, n), range(L)),
+        (True, tab.take(np.array(ext)), (batch, L, len(ext), n), ext),
+        (False, tab.slice_limbs(top, top + 1), (batch, 1, n), [top]),
+        (True, tab.slice_limbs(0, L), (batch, L, n), range(L)),
+        (False, tab.slice_limbs(L - 1, L), (batch, 2, 1, n), [L - 1]),
+        (True, tab.slice_limbs(0, L - 1), (batch, 2, L - 1, n),
+         range(L - 1)),
+    )
+    recs = []
+    for fwd, tables, shape, limbs in calls:
+        mt = tables.mxu
+        x = uniform_mod_q(gen, shape, tuple(ctx.params.moduli[i]
+                                            for i in limbs))
+        kern, plain = k1_pair(fwd)
+        plain = chunked(plain)
+        _record(recs, kern.__name__, kern(x, mt), plain(x, mt),
+                lambda: kern(x, mt), lambda: plain(x, mt), reps,
+                k1_work(x, mt, fwd), **k1_extra(mt))
+        del x
+    return recs
+
+
+def check_k1_small_ring(gen, reps=10) -> list[dict]:
+    """K1 at a ring the wgmma body does not take (N = 2048: 32 x 64), where
+    the shape rule runs the mma_sync body, against its plain version."""
+    moduli = primes.ntt_primes(2048, 4)
+    mt = mxu.make_mxu_tables(2048, moduli, device=gen.device)
+    x = uniform_mod_q(gen, (204, 4, 2048), moduli)
+    recs = []
+    for fwd in (True, False):
+        kern, plain = k1_pair(fwd)
+        _record(recs, kern.__name__, kern(x, mt), plain(x, mt),
+                lambda: kern(x, mt), lambda: plain(x, mt), reps,
+                k1_work(x, mt, fwd), **k1_extra(mt))
     return recs
 
 
@@ -285,14 +421,14 @@ def check_repairs(ctx, gen, chunks, n_clients=64, live_ctx=None,
     w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
     wr = torch.as_tensor(w_res, device=stacked.device)
     ws = torch.as_tensor(w_shoup, device=stacked.device)
-    _record(recs, "weighted_sum_fused",
-            pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L]),
+    got = pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L])
+    _record(recs, "weighted_sum_fused", got,
             ops._weighted_sum_impl(ctx, stacked, wr, ws),
             lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
                                                   moduli[:L]),
             lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
-            shape=stacked.shape)
-    del stacked
+            (0, io_bytes(stacked, got)), shape=stacked.shape)
+    del stacked, got
 
     live = live_ctx.params.chain_len
     vals = torch.randn((chunks, live_ctx.ring_dim), generator=gen,
@@ -306,7 +442,7 @@ def check_repairs(ctx, gen, chunks, n_clients=64, live_ctx=None,
             encoding.decode_core(dc, qs, res, scale),
             lambda: pallas_decode.decode_fused(live_ctx, dc, res, scale),
             lambda: encoding.decode_core(dc, qs, res, scale), reps,
-            shape=res.shape)
+            (0, io_bytes(res, got)), shape=res.shape)
     err = _max_abs_err(got, vals)
     if not err <= MAX_ERR:
         raise AssertionError(f"decode at live={live}: max_err {err}")
@@ -332,8 +468,10 @@ def check_butterfly(rot_ctx, mult_ctx, gen, chunks, reps=10) -> list[dict]:
         x = uniform_mod_q(gen, shape, tuple(int(q) for q in tb.q))
         kern = pallas_ntt.ntt_fused if fwd else pallas_ntt.intt_fused
         plain = ntt_mod.ntt_butterfly if fwd else ntt_mod.intt_butterfly
-        _record(recs, name, kern(x, tb), plain(x, tb),
-                lambda: kern(x, tb), lambda: plain(x, tb), reps)
+        got = kern(x, tb)
+        _record(recs, name, got, plain(x, tb),
+                lambda: kern(x, tb), lambda: plain(x, tb), reps,
+                (0, io_bytes(x, got, tb.tw_fwd if fwd else tb.tw_inv)))
 
     # Two independent kernels for one transform: K2 equals K1 bit for bit.
     L = mult_ctx.params.chain_len
@@ -613,7 +751,7 @@ def check_threshold_known_answers(mctx) -> None:
     if not (_same_key(per_party, sec) and _same_key(pk, pk_b)):
         raise AssertionError(f"batched keygen differs on {dev}")
     cpu_sec, cpu_pk = thr.multiparty_keygen_batched(
-        P.make_context(mctx.params), THR_PARTIES, seed=1)
+        P.make_context(mctx.params, device="cpu"), THR_PARTIES, seed=1)
     if not (torch.equal(sec.s.cpu(), cpu_sec.s)
             and torch.equal(pk.p0.cpu(), cpu_pk.p0)):
         raise AssertionError(f"threshold keygen on {dev} differs from the "
@@ -750,7 +888,8 @@ def check_threshold_kernels(ctx, secrets, cts, gen, weights=None,
         x = uniform_mod_q(gen, (P_, chunks, live, n), ctx.params.moduli)
         _record(recs, "ntt_mxu_fused", mxu_pallas.ntt_mxu_fused(x, mt),
                 mxu.ntt_mxu(x, mt), lambda: mxu_pallas.ntt_mxu_fused(x, mt),
-                lambda: mxu.ntt_mxu(x, mt), reps)
+                lambda: mxu.ntt_mxu(x, mt), reps, k1_work(x, mt, True),
+                **k1_extra(mt))
         del x
         parts = thr._partials(ctx, secrets, ct.data,
                               threefry.split(threefry.key(50, dev), P_))
@@ -759,14 +898,15 @@ def check_threshold_kernels(ctx, secrets, cts, gen, weights=None,
         coeffs = mxu_pallas.intt_mxu_fused(acc, mt)
         _record(recs, "intt_mxu_fused", coeffs, mxu.intt_mxu(acc, mt),
                 lambda: mxu_pallas.intt_mxu_fused(acc, mt),
-                lambda: mxu.intt_mxu(acc, mt), reps)
+                lambda: mxu.intt_mxu(acc, mt), reps, k1_work(acc, mt, False),
+                **k1_extra(mt))
         dc, qs = ctx.dec_consts[live - 1], ctx.q[:live]
-        _record(recs, "decode_fused",
-                pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale),
+        got = pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale)
+        _record(recs, "decode_fused", got,
                 encoding.decode_core(dc, qs, coeffs, ct.scale),
                 lambda: pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale),
                 lambda: encoding.decode_core(dc, qs, coeffs, ct.scale), reps,
-                shape=coeffs.shape)
+                (0, io_bytes(coeffs, got)), shape=coeffs.shape)
     if weights is not None:
         L = ctx.params.chain_len
         moduli = ctx.params.moduli
@@ -775,14 +915,14 @@ def check_threshold_kernels(ctx, secrets, cts, gen, weights=None,
         w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
         wr = torch.as_tensor(w_res, device=dev)
         ws = torch.as_tensor(w_shoup, device=dev)
-        _record(recs, "weighted_sum_fused",
-                pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
-                                              moduli[:L]),
+        got = pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
+                                            moduli[:L])
+        _record(recs, "weighted_sum_fused", got,
                 ops._weighted_sum_impl(ctx, stacked, wr, ws),
                 lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
                                                       moduli[:L]),
                 lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
-                shape=stacked.shape)
+                (0, io_bytes(stacked, got)), shape=stacked.shape)
     return recs
 
 
@@ -889,7 +1029,8 @@ def check_masking(outs: dict, off_vecs, on_vecs, hs: list) -> dict:
     if bad:
         raise AssertionError(f"masking path: max_err above {bound}: {bad}")
     cpu = Masking("paillier", MASK_LEARNERS, cryptodir=hs[0].cryptodir,
-                  randomnessdir=hs[0].randomnessdir, **MASK_GEOMETRY)
+                  randomnessdir=hs[0].randomnessdir, device="cpu",
+                  **MASK_GEOMETRY)
     blob = cpu.encrypt(on_vecs[0], iteration=1)
     agg = cpu.computeWeightedAverage(
         [blob] + [h.encrypt(v, iteration=1) for h, v in zip(hs[1:],
@@ -1114,11 +1255,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
-    ctx = P.make_context(params, dev)
-    sk = S.deserialize_secret_key((KEY_DIR / "key-private.txt").read_bytes(),
-                                  dev)
-    pk = S.deserialize_public_key((KEY_DIR / "key-public.txt").read_bytes(),
-                                  dev)
+    # The entry points' default device (the card), as a user calls them.
+    ctx = P.make_context(params)
+    sk = S.deserialize_secret_key((KEY_DIR / "key-private.txt").read_bytes())
+    pk = S.deserialize_public_key((KEY_DIR / "key-public.txt").read_bytes())
+    if not all(t.is_cuda for t in (ctx.q, sk.s, pk.p0)):
+        raise AssertionError("make_context / the key decoders did not default "
+                             "to the card")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n = params.ring_dim
@@ -1137,6 +1280,8 @@ def main() -> int:
                                             mult_depth=8), dev)
 
     recs = check_kernels(ctx, sk, values, weights, gen)
+    recs += check_multiply_kernels(ctx, gen, MULT_BATCH)
+    recs += check_k1_small_ring(gen)
     recs += check_repairs(ctx, gen, chunks, 64, deep_ctx)
     recs += check_butterfly(rot_ctx, ctx, gen, 64)
     print_records(recs, gpu)
@@ -1305,8 +1450,9 @@ def main() -> int:
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
               mask_counts):
         launches.update(c)
-    for r in recs:
-        r["launches"] = launches[r["name"]]
+    for r in recs:   # K1: the launches of the record's body
+        r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r
+                                              else "")]
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

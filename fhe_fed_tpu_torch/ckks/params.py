@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from ..rns import primes as primes_mod
 from ..rns import modops
 from ..ntt import tables as ntt_tables
@@ -149,8 +150,8 @@ class CkksContext:
 
 
 def make_context(params: CkksParams,
-                 device: torch.device | str = "cpu") -> CkksContext:
-    device = torch.device(device)
+                 device: torch.device | str = "cuda") -> CkksContext:
+    device = cuda_lib.device(device)
     n = params.ring_dim
     moduli = params.moduli
     qs = np.array(moduli, dtype=np.int64)

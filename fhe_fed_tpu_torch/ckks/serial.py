@@ -19,6 +19,7 @@ import struct
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from .params import CkksContext
 from .keys import SecretKey, PublicKey
 from .ops import Ciphertext, SeededCiphertext, expand_seeded
@@ -154,7 +155,8 @@ def serialize_secret_key(ctx: CkksContext, sk: SecretKey) -> bytes:
 
 
 def deserialize_secret_key(blob: bytes,
-                           device: torch.device | str = "cpu") -> SecretKey:
+                           device: torch.device | str = "cuda") -> SecretKey:
+    device = cuda_lib.device(device)
     s, s_shoup = _unpack_key_arrays(blob, 0)
     return SecretKey(s=_res(s, device), s_shoup=_shoup(s_shoup, device))
 
@@ -165,7 +167,8 @@ def serialize_public_key(ctx: CkksContext, pk: PublicKey) -> bytes:
 
 
 def deserialize_public_key(blob: bytes,
-                           device: torch.device | str = "cpu") -> PublicKey:
+                           device: torch.device | str = "cuda") -> PublicKey:
+    device = cuda_lib.device(device)
     p0, p0s, p1, p1s = _unpack_key_arrays(blob, 1)
     return PublicKey(p0=_res(p0, device), p0_shoup=_shoup(p0s, device),
                      p1=_res(p1, device), p1_shoup=_shoup(p1s, device))

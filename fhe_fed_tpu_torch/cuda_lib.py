@@ -49,9 +49,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # out, x, w1_nk, w2_nk, mid, mid_shoup, limb_consts(host), B, L, n1, n2,
+    # out, x, w1, w2, mid_pair, limb_consts(host), B, L, n1, n2, forward,
+    # stream
+    "fhe_ntt_mxu_wg": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out, x, w1, w2, mid, mid_shoup, limb_consts(host), B, L, n1, n2,
     # forward, stream
-    "fhe_ntt_mxu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fhe_ntt_mxu_sync": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # out, x, tw, consts(host), B, L, n, forward, stream
     "fhe_ntt_butterfly": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # out, x, weights(device), weights(host), moduli(host), K, live, n,
@@ -134,6 +137,23 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = cdll
     return _lib
+
+
+def device(d: torch.device | str = "cuda") -> torch.device:
+    """torch.device(d) for an entry point's `device` argument (default the
+    card), with the index made explicit ("cuda" -> the current card, as
+    its tensors report it). Asking for CUDA where torch sees none raises;
+    nothing falls back to the CPU."""
+    dev = torch.device(d)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} (the entry points' default)"
+                           f" but torch sees no CUDA device: pass "
+                           f"device='cpu' to run on the CPU")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def check(err: int, name: str) -> None:

@@ -10,11 +10,12 @@ as fhe_fed_tpu.fed.api.CKKS, on one torch device.
     out = helper.decrypt(agg, dims)
 
 The constructor takes the JAX class's arguments and refuses the same
-combinations, plus `device` (default "cpu"): the context, the keys and
-every tensor of the helper live there; it is never chosen by what the
-machine has. The cryptodir (cryptocontext.txt JSON, FFTK key files) and
-every blob (FFTC, FFTS, FFTP) are the JAX package's formats, so either
-package reads what the other writes.
+combinations, plus `device` (default "cuda", the card; pass "cpu" to run
+on the CPU): the context, the keys and every tensor of the helper live
+there; it is never chosen by what the machine has. The cryptodir
+(cryptocontext.txt JSON, FFTK key files) and every blob (FFTC, FFTS,
+FFTP) are the JAX package's formats, so either package reads what the
+other writes.
 
 The helper's PRNG stream is the threefry key key(seed), advanced by
 split, as the JAX class uses it off a TPU: with the same seed both
@@ -35,6 +36,7 @@ import secrets
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from ..ckks import params as ckks_params
 from ..ckks import keys as ckks_keys
 from ..ckks import ops as ckks_ops
@@ -56,7 +58,7 @@ class CKKS(Scheme):
                  mult_depth: int = 1, dense_pack: bool = False,
                  symmetric: bool = False, seeded_fresh: bool = False,
                  seed: int | None = None, packing: str = "coeff",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__(scheme)
         self.batchSize = int(batchSize)
         self.scaleFactorBits = int(scaleFactorBits)
@@ -83,7 +85,7 @@ class CKKS(Scheme):
         self.seeded_fresh = bool(seeded_fresh)
         if self.seeded_fresh:
             self.symmetric = True
-        self.device = torch.device(device)
+        self.device = cuda_lib.device(device)
         self._params = ckks_params.make_params(
             batch=self.batchSize, scale_bits=self.scaleFactorBits,
             mult_depth=self.mult_depth)

@@ -36,6 +36,7 @@ import os
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from ..native import paillier as paillier_mod
 from .scheme import Scheme, register_scheme
 
@@ -155,15 +156,15 @@ def unpack_values(blocks: list[int], n: int, learners: int, num_bits: int,
 
 class Masking(Scheme):
     """The reference's `Paillier : Scheme` surface (its constructor's
-    arguments), plus `device` (default "cpu"): the online phase runs on
-    tensors there."""
+    arguments), plus `device` (default "cuda", the card; "cpu" on request):
+    the online phase runs on tensors there."""
 
     def __init__(self, scheme: str = "paillier", learners: int = 4,
                  modulus_bits: int = 2048, num_bits: int = 17,
                  precision_bits: int = 13,
                  cryptodir: str = "../resources/cryptoparams/",
                  randomnessdir: str = "../resources/random_params/",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__(scheme)
         self.learners = learners
         self.modulus_bits = modulus_bits
@@ -171,7 +172,7 @@ class Masking(Scheme):
         self.precision_bits = precision_bits
         self.cryptodir = cryptodir
         self.randomnessdir = randomnessdir
-        self.device = torch.device(device)
+        self.device = cuda_lib.device(device)
         self._ring_mask = (1 << num_bits) - 1
         self._ctx: paillier_mod.PaillierContext | None = None
 

@@ -44,7 +44,7 @@ class ThresholdCKKS(CKKS):
                  cryptodir: str = "../resources/cryptoparams/",
                  parties: int = 3, mult_depth: int = 1,
                  dense_pack: bool = False, seed: int | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__("ckks-threshold", batchSize, scaleFactorBits,
                          cryptodir, mult_depth=mult_depth,
                          dense_pack=dense_pack, symmetric=False, seed=seed,

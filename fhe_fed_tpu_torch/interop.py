@@ -3,7 +3,9 @@
 Each helper takes the JAX package's arrays as numpy (u32 residues, u32
 Shoup words, int8 matrices) and returns the port's objects with its dtype
 rules: residues int32, Shoup words int64, int8 unchanged. Nothing here
-imports jax: callers pass `np.asarray(jax_array)`.
+imports jax: callers pass `np.asarray(jax_array)`. Like the other entry
+points, the helpers put their tensors on the card unless `device` says
+otherwise (cuda_lib.device).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import collections
 import numpy as np
 import torch
 
+from . import cuda_lib
 from .ckks.keys import SecretKey, PublicKey
 from .ckks.ops import Ciphertext, SeededCiphertext
 from .ckks.keyswitch import KSwitchKey
@@ -20,6 +23,7 @@ from .ckks.threshold import PartySecrets
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
+    device = cuda_lib.device(device)
     a = np.asarray(a)
     if a.dtype == np.int8:
         return torch.as_tensor(a, device=device)
@@ -31,13 +35,13 @@ def _tensor(name: str, a, device) -> torch.Tensor:
                            device=device)
 
 
-def context_arrays_from_numpy(arrays: dict, device="cpu") -> dict:
+def context_arrays_from_numpy(arrays: dict, device="cuda") -> dict:
     """{name: numpy array} -> {name: tensor}; names ending in 'shoup' are
     Shoup words (int64), other integer arrays residues (int32)."""
     return {k: _tensor(k, v, device) for k, v in arrays.items()}
 
 
-def keys_from_numpy(sk_arrays, pk_arrays, device="cpu"):
+def keys_from_numpy(sk_arrays, pk_arrays, device="cuda"):
     """(s, s_shoup) and (p0, p0_shoup, p1, p1_shoup) -> (SecretKey,
     PublicKey); either tuple may be None."""
     sk = pk = None
@@ -52,19 +56,19 @@ def keys_from_numpy(sk_arrays, pk_arrays, device="cpu"):
 
 
 def ciphertext_from_numpy(data, scale: float, level: int,
-                          device="cpu") -> Ciphertext:
+                          device="cuda") -> Ciphertext:
     """u32 ciphertext data (..., chunks, 2, live, N) -> Ciphertext."""
     return Ciphertext(data=_tensor("data", data, device), scale=float(scale),
                       level=int(level))
 
 
 def seeded_ciphertext_from_numpy(c0, seed, scale: float, level: int,
-                                 device="cpu") -> SeededCiphertext:
+                                 device="cuda") -> SeededCiphertext:
     """u32 c0 (chunks, live, N) and u32 seed (4,) -> SeededCiphertext."""
     return SeededCiphertext(
         c0=_tensor("c0", c0, device),
         seed=torch.as_tensor(np.asarray(seed, dtype=np.uint32).astype(
-            np.int64), device=device),
+            np.int64), device=cuda_lib.device(device)),
         scale=float(scale), level=int(level))
 
 
@@ -92,13 +96,13 @@ def cnn_fedavg_state_dict_from_numpy(params) -> collections.OrderedDict:
 
 
 def kswitch_key_from_numpy(b, b_shoup, a, a_shoup,
-                           device="cpu") -> KSwitchKey:
+                           device="cuda") -> KSwitchKey:
     """A relinearisation or Galois key's (dnum, L, N) rows -> KSwitchKey."""
     return KSwitchKey(**context_arrays_from_numpy(
         dict(b=b, b_shoup=b_shoup, a=a, a_shoup=a_shoup), device))
 
 
-def party_secrets_from_numpy(s, s_shoup, device="cpu") -> PartySecrets:
+def party_secrets_from_numpy(s, s_shoup, device="cuda") -> PartySecrets:
     """Threshold shares (P, L, N) and their Shoup words -> PartySecrets."""
     return PartySecrets(**context_arrays_from_numpy(
         dict(s=s, s_shoup=s_shoup), device))

@@ -143,15 +143,46 @@ def _host_build(ring_dim: int, moduli: tuple, n1: int):
                 c32=c32, offm=offm, q=qs)
 
 
+def body_for(n1: int, n2: int) -> str:
+    """The body of kernel K1 that serves an n1 x n2 split: `wgmma` where
+    both local DFT sizes fill one warpgroup's 64-row tile (N = 4096, 8192,
+    16384), `mma_sync` for the smaller rings."""
+    return "wgmma" if min(n1, n2) >= 64 else "mma_sync"
+
+
+def wg_column(j, t):
+    """Column of K1's wgmma table that holds output plane j of output t:
+    each 32 columns hold the four planes of 8 outputs, so the accumulator
+    fragment of `wgmma` m64nNk32 (columns 2c, 2c+1 of every 8) gives one
+    thread P_0 .. P_3 of the same two outputs."""
+    return (t >> 3) * 32 + j * 8 + (t & 7)
+
+
+def wg_layout(r: np.ndarray) -> np.ndarray:
+    """JAX-layout planes (L, 4, S, 4S), r[l, i, s, j*S + t], -> K1's wgmma B
+    operand (L, 4S, 4S) int8, W[l, wg_column(j, t), 4*s + i]: n-major with
+    the contraction index contiguous, and the four digits of one input
+    value side by side, so the kernel writes them as one 32-bit word."""
+    L, _, s, _ = r.shape
+    w = r.reshape(L, 4, s, 4, s // 8, 8).transpose(0, 4, 3, 5, 2, 1)
+    return np.ascontiguousarray(w.reshape(L, 4 * s, 4 * s))
+
+
 @dataclasses.dataclass(frozen=True)
 class MxuNttTables:
     """Digit-plane matrices and twiddles for the four-step NTT.
 
     The per-limb scalars (q, c32, c32_shoup, offm) stay on the host as numpy
     int64: the kernel takes them as launch arguments. The rest are tensors
-    on the context's device. `*_nk` hold the same matrices as r1f .. r2i,
-    reshaped to (L, 4*Sout, 4*S) and transposed so that the contraction
-    index is contiguous: the layout of K1's tensor-core B operand."""
+    on the context's device. `r*` and `mid*` are the JAX package's layout,
+    read by the plain version. K1 reads `w*`, its own copy of the same
+    matrices as the B operand of the body that serves this ring (`body`):
+    wg_layout for `wgmma`; for `mma_sync` reshaped to (L, 4*Sout, 4*S) and
+    transposed so that the contraction index is contiguous. `mid*_pair`
+    (L, N1, N2, 2) int32, the wgmma body's twiddles, hold each twiddle
+    beside the low 32 bits of its Shoup word (one 8-byte load); they are
+    None where the mma_sync body serves, which reads `mid*` and
+    `mid*_shoup`."""
     ring_dim: int
     n1: int
     n2: int
@@ -167,33 +198,38 @@ class MxuNttTables:
     midf_shoup: torch.Tensor        # (L, N1, N2) int64
     midi: torch.Tensor
     midi_shoup: torch.Tensor
-    r1f_nk: torch.Tensor            # (L, 4*N1, 4*N1) int8, [n, k]
-    r2f_nk: torch.Tensor
-    r1i_nk: torch.Tensor
-    r2i_nk: torch.Tensor
+    w1f: torch.Tensor               # (L, 4*N1, 4*N1) int8, K1's layout
+    w2f: torch.Tensor               # (L, 4*N2, 4*N2)
+    w1i: torch.Tensor
+    w2i: torch.Tensor
+    midf_pair: torch.Tensor | None  # (L, N1, N2, 2) int32, wgmma only
+    midi_pair: torch.Tensor | None
 
     @property
     def num_limbs(self) -> int:
         return int(self.q.shape[0])
 
-    def slice_limbs(self, lo: int, hi: int) -> "MxuNttTables":
+    @property
+    def body(self) -> str:
+        return body_for(self.n1, self.n2)
+
+    def _per_limb(self, pick) -> "MxuNttTables":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name)[lo:hi]
+            f.name: pick(getattr(self, f.name))
             for f in dataclasses.fields(self)
-            if f.name not in ("ring_dim", "n1", "n2")})
+            if f.name not in ("ring_dim", "n1", "n2")
+            and getattr(self, f.name) is not None})
+
+    def slice_limbs(self, lo: int, hi: int) -> "MxuNttTables":
+        return self._per_limb(lambda v: v[lo:hi])
 
     def take(self, idx) -> "MxuNttTables":
         """Tables of the limbs `idx`, in that order (contiguous copies)."""
         idx = np.asarray(idx, dtype=np.int64)
         ti = torch.as_tensor(idx)
-        kw = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if f.name in ("ring_dim", "n1", "n2"):
-                continue
-            kw[f.name] = (v[idx] if isinstance(v, np.ndarray)
-                          else v.index_select(0, ti.to(v.device)))
-        return dataclasses.replace(self, **kw)
+        return self._per_limb(
+            lambda v: (v[idx] if isinstance(v, np.ndarray)
+                       else v.index_select(0, ti.to(v.device))))
 
 
 def _default_n1(ring_dim: int) -> int:
@@ -214,12 +250,23 @@ def make_mxu_tables(ring_dim: int, moduli: tuple[int, ...],
         return torch.as_tensor(np.ascontiguousarray(a).astype(dtype),
                                device=device)
 
-    def nk(r):
+    n2 = ring_dim // n1
+    wgmma = body_for(n1, n2) == "wgmma"
+
+    def w(r):
+        if wgmma:
+            return t(wg_layout(r), np.int8)
         L, _, s, s4 = r.shape
         return t(np.swapaxes(r.reshape(L, 4 * s, s4), 1, 2), np.int8)
 
+    def pair(mid):
+        if not wgmma:
+            return None
+        sw = sh(mid, qs[:, None, None]).astype(np.uint32).view(np.int32)
+        return t(np.stack([mid.view(np.int32), sw], axis=-1), np.int32)
+
     return MxuNttTables(
-        ring_dim=ring_dim, n1=n1, n2=ring_dim // n1,
+        ring_dim=ring_dim, n1=n1, n2=n2,
         q=qs, c32=h["c32"].astype(np.int64), c32_shoup=sh(h["c32"], qs),
         offm=h["offm"].astype(np.int64),
         r1f=t(h["r1f"], np.int8), r2f=t(h["r2f"], np.int8),
@@ -228,8 +275,8 @@ def make_mxu_tables(ring_dim: int, moduli: tuple[int, ...],
         midf_shoup=t(sh(h["midf"], qs[:, None, None]), np.int64),
         midi=t(h["midi"], np.int32),
         midi_shoup=t(sh(h["midi"], qs[:, None, None]), np.int64),
-        r1f_nk=nk(h["r1f"]), r2f_nk=nk(h["r2f"]),
-        r1i_nk=nk(h["r1i"]), r2i_nk=nk(h["r2i"]))
+        w1f=w(h["r1f"]), w2f=w(h["r2f"]), w1i=w(h["r1i"]), w2i=w(h["r2i"]),
+        midf_pair=pair(h["midf"]), midi_pair=pair(h["midi"]))
 
 
 def mxu_viable(ring_dim: int, n1: int | None = None) -> bool:

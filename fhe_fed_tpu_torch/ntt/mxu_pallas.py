@@ -6,6 +6,12 @@ semantics as the butterfly ntt / intt (bit-reversed evaluation order) and
 the same tables, bit-identical to mxu.ntt_mxu / mxu.intt_mxu, its plain
 version. CUDA tensors only: the dispatch in ntt/ntt.py sends CPU tensors
 to the plain version.
+
+The kernel has two bodies, chosen by shape alone (mxu.body_for, which also
+fixes the layout of the tables K1 reads): the wgmma body where both local
+DFT sizes are at least 64 (one warpgroup's 64-row tile; N = 4096, 8192,
+16384), the mma.sync body for the smaller rings. Both are exact for every
+modulus q < 2**31.
 """
 
 from __future__ import annotations
@@ -21,6 +27,24 @@ from .mxu import MxuNttTables
 _MAX_LIMBS = 16
 
 
+def operands(mt: MxuNttTables, forward: bool):
+    """What K1's body for this ring reads, in its C entry's order: the
+    device tables, their dtypes, and the per-limb constants (host uint32
+    (4, 16): q, 2^32 mod q, its Shoup word, the plane offset mod q)."""
+    if mt.body == "wgmma":
+        tabs = ((mt.w1f, mt.w2f, mt.midf_pair) if forward
+                else (mt.w1i, mt.w2i, mt.midi_pair))
+        dts = (torch.int8, torch.int8, torch.int32)
+    else:
+        tabs = ((mt.w1f, mt.w2f, mt.midf, mt.midf_shoup) if forward
+                else (mt.w1i, mt.w2i, mt.midi, mt.midi_shoup))
+        dts = (torch.int8, torch.int8, torch.int32, torch.int64)
+    consts = np.zeros((4, _MAX_LIMBS), dtype=np.uint32)
+    for row, v in enumerate((mt.q, mt.c32, mt.c32_shoup, mt.offm)):
+        consts[row, :mt.num_limbs] = v
+    return tabs, dts, consts
+
+
 def _call(x: torch.Tensor, mt: MxuNttTables, forward: bool) -> torch.Tensor:
     name = "ntt_mxu_fused" if forward else "intt_mxu_fused"
     cuda_lib.require_cuda(x, name, torch.int32)
@@ -33,30 +57,24 @@ def _call(x: torch.Tensor, mt: MxuNttTables, forward: bool) -> torch.Tensor:
             and max(n1, n2) <= 128):
         raise ValueError(f"{name}: unsupported split N={n} = {n1} x {n2} "
                          f"or L={L} > {_MAX_LIMBS}")
-    w1 = mt.r1f_nk if forward else mt.r1i_nk
-    w2 = mt.r2f_nk if forward else mt.r2i_nk
-    mid = mt.midf if forward else mt.midi
-    mids = mt.midf_shoup if forward else mt.midi_shoup
-    for t, dt in ((w1, torch.int8), (w2, torch.int8), (mid, torch.int32),
-                  (mids, torch.int64)):
+    tabs, dts, consts = operands(mt, forward)
+    for t, dt in zip(tabs, dts):
         cuda_lib.require_cuda(t, name, dt)
         if t.device != x.device:
             raise ValueError(f"{name}: tables on {t.device}, input on "
                              f"{x.device}")
-    consts = np.zeros((4, _MAX_LIMBS), dtype=np.uint32)
-    for row, v in enumerate((mt.q, mt.c32, mt.c32_shoup, mt.offm)):
-        consts[row, :L] = v
     B = x.numel() // (L * n)
     out = torch.empty_like(x)
     if B == 0:
         return out
-    err = cuda_lib.lib().fhe_ntt_mxu(
-        out.data_ptr(), x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        mid.data_ptr(), mids.data_ptr(),
-        consts.ctypes.data_as(ctypes.c_void_p),
-        B, L, n1, n2, int(forward), cuda_lib.stream_ptr(x))
+    entry = (cuda_lib.lib().fhe_ntt_mxu_wg if mt.body == "wgmma"
+             else cuda_lib.lib().fhe_ntt_mxu_sync)
+    err = entry(out.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in tabs),
+                consts.ctypes.data_as(ctypes.c_void_p),
+                B, L, n1, n2, int(forward), cuda_lib.stream_ptr(x))
     cuda_lib.check(err, name)
     cuda_lib.launches[name] += 1
+    cuda_lib.launches[f"{name}.{mt.body}"] += 1
     return out
 
 
@@ -66,5 +84,6 @@ def ntt_mxu_fused(x: torch.Tensor, mt: MxuNttTables) -> torch.Tensor:
 
 
 def intt_mxu_fused(x: torch.Tensor, mt: MxuNttTables) -> torch.Tensor:
-    """Inverse NTT of int32 residues (..., L, N) on the GPU, exactly scaled."""
+    """Inverse NTT of int32 residues (..., L, N) on the GPU, exactly
+    scaled."""
     return _call(x, mt, False)

@@ -32,11 +32,12 @@ WEIGHTS = [0.5, 0.2, 0.3]
 @pytest.fixture(scope="module")
 def setup():
     jctx = J_params.make_context(J_params.make_params(**SMALL))
-    tctx = T_params.make_context(T_params.make_params(**SMALL))
+    tctx = T_params.make_context(T_params.make_params(**SMALL), device="cpu")
     sk, pk = J_keys.keygen(jctx, seed=0)
     tsk, tpk = interop.keys_from_numpy(
         [np.asarray(a) for a in (sk.s, sk.s_shoup)],
-        [np.asarray(a) for a in (pk.p0, pk.p0_shoup, pk.p1, pk.p1_shoup)])
+        [np.asarray(a) for a in (pk.p0, pk.p0_shoup, pk.p1, pk.p1_shoup)],
+        device="cpu")
     return jctx, tctx, sk, pk, tsk, tpk
 
 
@@ -65,12 +66,14 @@ def test_weighted_sum_matches_both_lowerings(setup, K):
         np.asarray(J_pagg.weighted_sum_fused(jnp.asarray(stacked), jr, js,
                                              jctx.q[:live, None],
                                              interpret=True)), want)
-    ct = interop.ciphertext_from_numpy(stacked, 2.0 ** 40, 0)
+    ct = interop.ciphertext_from_numpy(stacked, 2.0 ** 40, 0,
+                                       device="cpu")
     got = T_ops.weighted_sum(tctx, ct, weights)
     assert got.scale == 2.0 ** 40 * ds and got.data.dtype == torch.int32
     np.testing.assert_array_equal(_u32(got.data), want)
     # The list form stacks the same data.
-    lst = [interop.ciphertext_from_numpy(s, 2.0 ** 40, 0) for s in stacked]
+    lst = [interop.ciphertext_from_numpy(s, 2.0 ** 40, 0, device="cpu")
+           for s in stacked]
     np.testing.assert_array_equal(
         _u32(T_ops.weighted_sum(tctx, lst, weights).data), want)
 
@@ -155,7 +158,7 @@ def test_round_jax_encrypt_port_aggregate_and_decrypt(setup):
     want = np.asarray(J_ops.decrypt(jctx, sk, jagg))
 
     tct = interop.ciphertext_from_numpy(np.asarray(jct.data), jct.scale,
-                                        jct.level)
+                                        jct.level, device="cpu")
     tagg = T_ops.weighted_sum(tctx, tct, WEIGHTS)
     assert tagg.scale == jagg.scale and tagg.level == jagg.level
     np.testing.assert_array_equal(_u32(tagg.data), np.asarray(jagg.data))

@@ -47,12 +47,36 @@ def _gen(dev, seed=0):
     return g
 
 
-@pytest.mark.parametrize("n,L,batch", [(256, 3, 3), (512, 2, 19),
-                                       (8192, 5, 7)])
-def test_ntt_kernel_matches_plain(dev, n, L, batch):
-    mod = primes.ntt_primes(n, L)
+@pytest.mark.parametrize("n,L,batch,bits", [
+    (256, 3, 3, 31), (512, 2, 19, 31), (8192, 5, 7, 31), (16384, 3, 3, 31),
+    (8192, 16, 2, 31), (8192, 4, 5, 31), (4096, 5, 1, 31), (8192, 1, 3, 31),
+    (2048, 1, 2, 31), (8192, 3, 5, 22), (8192, 3, 5, 26), (8192, 3, 5, 30),
+    (2048, 3, 5, 22)])
+def test_ntt_kernel_matches_plain(dev, n, L, batch, bits):
+    """K1 by the shape rule (mma_sync below N = 4096, wgmma from it), odd
+    batches included (B polynomials of a limb go two to a CTA), one limb
+    alone (ModDown's and the rescale's inverse), and `bits`-bit primes:
+    both bodies are exact for every q < 2^31 (the paths use 31-bit ones)."""
+    mod = primes.ntt_primes(n, L, target_bits=bits)
     mt = mxu.make_mxu_tables(n, mod, device=dev)
     x = uniform_mod_q(_gen(dev, n), (batch, L, n), mod)
+    y = mxu_pallas.ntt_mxu_fused(x, mt)
+    assert torch.equal(y, mxu.ntt_mxu(x, mt))
+    z = mxu_pallas.intt_mxu_fused(y, mt)
+    assert torch.equal(z, mxu.intt_mxu(y, mt))
+    assert torch.equal(z, x)
+
+
+@pytest.mark.parametrize("n", [8192, 2048])
+def test_ntt_kernel_on_taken_limbs(dev, n):
+    """K1 on tables taken in a non-contiguous limb order
+    (MxuNttTables.take, as the key switch's extended basis does): the
+    wgmma body at N = 8192, the mma_sync body at 2048."""
+    mod = primes.ntt_primes(n, 6)
+    idx = [4, 0, 5, 2]
+    mt = mxu.make_mxu_tables(n, mod, device=dev).take(idx)
+    assert mt.body == ("wgmma" if n == 8192 else "mma_sync")
+    x = uniform_mod_q(_gen(dev, 6), (3, 2, 4, n), tuple(mod[i] for i in idx))
     y = mxu_pallas.ntt_mxu_fused(x, mt)
     assert torch.equal(y, mxu.ntt_mxu(x, mt))
     z = mxu_pallas.intt_mxu_fused(y, mt)
@@ -140,7 +164,8 @@ def test_key_switch_and_rotate_match_cpu(dev, branch):
     """key_switch and rotate on the card (K1 or K2) equal the CPU result."""
     params = P.make_params(batch=128, scale_bits=40, mult_depth=2,
                            ring_dim=256)
-    cpu, gpu = P.make_context(params), P.make_context(params, dev)
+    cpu = P.make_context(params, device="cpu")
+    gpu = P.make_context(params, dev)
     if branch == "butterfly":
         cpu = dataclasses.replace(cpu, tables=dataclasses.replace(
             cpu.tables, mxu=None))
@@ -185,6 +210,36 @@ def test_rotation_and_multiply_paths_small(dev):
         chip_smoke.run_multiply_path(ctx, a, b, rlk)))
     assert chip_smoke.check_products(ctx, sk, za, zb, prod, 8) <= \
         chip_smoke.MAX_ERR
+    recs = chip_smoke.check_multiply_kernels(ctx, gen, 8, reps=1)
+    assert [r["shape"] for r in recs] == [
+        [8, 4, 8192], [8, 4, 5, 8192], [8, 1, 8192], [8, 4, 8192],
+        [8, 2, 1, 8192], [8, 2, 3, 8192]]
+    assert [r["max_abs_err"] for r in recs] == [0.0] * 6
+
+
+def test_entry_points_default_to_the_card_on_card(dev, tmp_path):
+    """With no device given, the entry points put their state on the card
+    (the index made explicit) and run there."""
+    from fhe_fed_tpu_torch import ThresholdCKKS, Masking, interop
+    card = torch.device("cuda", torch.cuda.current_device())
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
+    ctx = P.make_context(params)
+    assert ctx.device == card and ctx.q.is_cuda
+    sk = S.deserialize_secret_key(
+        (chip_smoke.KEY_DIR / "key-private.txt").read_bytes())
+    pk = S.deserialize_public_key(
+        (chip_smoke.KEY_DIR / "key-public.txt").read_bytes())
+    assert sk.s.device == card and pk.p0.device == card
+    for cls in (CKKS, ThresholdCKKS, Masking):
+        assert cls(cryptodir=str(tmp_path / cls.__name__)).device == card
+    ct = interop.ciphertext_from_numpy(np.zeros((1, 2, 4, 8192), np.uint32),
+                                       1.0, 0)
+    assert ct.data.device == card
+    h = CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "run"), seed=7)
+    h.genCryptoContextAndKeyGen()
+    x = np.random.default_rng(0).standard_normal(300)
+    out = h.decrypt(h.computeWeightedAverage([h.encrypt(x)], [1.0]), 300)
+    assert np.abs(out - x).max() <= chip_smoke.MAX_ERR
 
 
 def test_main_path_small(dev):
@@ -246,9 +301,10 @@ def test_ckks_bytes_on_card_equal_cpu(dev, tmp_path, mode):
 
 def test_ffts_expansion_on_card(dev):
     params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
-    cpu, gpu = P.make_context(params), P.make_context(params, dev)
+    cpu = P.make_context(params, device="cpu")
+    gpu = P.make_context(params, dev)
     sk_blob = (chip_smoke.KEY_DIR / "key-private.txt").read_bytes()
-    sk = S.deserialize_secret_key(sk_blob)
+    sk = S.deserialize_secret_key(sk_blob, device="cpu")
     vals = torch.randn((3, 8192), generator=torch.Generator().manual_seed(1))
     sct = ops.encrypt_symmetric_seeded(cpu, sk, vals * 0.1, TF.key(4))
     blob = S.serialize_seeded_ct(cpu, sct)
@@ -285,7 +341,8 @@ def test_threshold_ceremonies_on_card_equal_cpu(dev):
     from fhe_fed_tpu_torch.ckks import threshold as thr
     params = P.make_params(batch=128, scale_bits=40, mult_depth=1,
                            ring_dim=256)
-    cpu, gpu = P.make_context(params), P.make_context(params, dev)
+    cpu = P.make_context(params, device="cpu")
+    gpu = P.make_context(params, dev)
     (csec, cpk), (gsec, gpk) = (thr.multiparty_keygen_batched(c, 3, seed=3)
                                 for c in (cpu, gpu))
     assert torch.equal(gsec.s.cpu(), csec.s)

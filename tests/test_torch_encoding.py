@@ -28,7 +28,7 @@ SMALL = dict(batch=128, scale_bits=40, mult_depth=1, ring_dim=256)
 def _ctxs(**kw):
     kw = {**SMALL, **kw}
     return (J_params.make_context(J_params.make_params(**kw)),
-            T_params.make_context(T_params.make_params(**kw)))
+            T_params.make_context(T_params.make_params(**kw), device="cpu"))
 
 
 def _bits(a):

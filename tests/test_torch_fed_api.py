@@ -29,13 +29,20 @@ MODES = {
 }
 
 
+def _cpu(cls) -> dict:
+    """device="cpu" for a port class (its default is the card); the JAX
+    classes take no device."""
+    return ({"device": "cpu"} if cls.__module__.startswith("fhe_fed_tpu_torch")
+            else {})
+
+
 def _helpers(tmp_path, seed, **kw):
     """A JAX and a port helper with the same seed, each with its own
     freshly generated cryptodir."""
     j = J.CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "jax"), seed=seed,
                **kw)
     t = T.CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "port"), seed=seed,
-               **kw)
+               device="cpu", **kw)
     j.genCryptoContextAndKeyGen()
     t.genCryptoContextAndKeyGen()
     return j, t
@@ -73,7 +80,7 @@ def test_helpers_write_the_same_bytes_as_jax(tmp_path, mode):
 def test_seeded_blob_halves_the_upload(tmp_path):
     j, t = _helpers(tmp_path, 3, seeded_fresh=True)
     full = T.CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "port"),
-                  symmetric=True, seed=4)
+                  symmetric=True, seed=4, device="cpu")
     full.loadCryptoParams()
     d = np.random.default_rng(2).standard_normal(DIMS)
     seeded, plain = t.encrypt(d), full.encrypt(d)
@@ -92,7 +99,8 @@ def test_cryptodirs_and_blobs_cross_both_ways(tmp_path):
     d = np.random.default_rng(3).standard_normal(1000)
     for writer, reader_cls in ((tmp_path / "jax", T.CKKS),
                                (tmp_path / "port", J.CKKS)):
-        reader = reader_cls("ckks", 128, 40, cryptodir=str(writer))
+        reader = reader_cls("ckks", 128, 40, cryptodir=str(writer),
+                            **_cpu(reader_cls))
         reader.loadCryptoParams()
         src = j if writer.name == "jax" else t
         blob = src.encrypt(d)
@@ -111,7 +119,7 @@ def shared_dir(tmp_path_factory):
 
 
 def _loaded(cls, d, **kw):
-    h = cls("ckks", 128, 40, cryptodir=d, seed=11, **kw)
+    h = cls("ckks", 128, 40, cryptodir=d, seed=11, **_cpu(cls), **kw)
     h.loadCryptoParams()
     return h
 
@@ -175,7 +183,7 @@ def test_refusals_match_jax(shared_dir):
                dict(packing="slots", seeded_fresh=True)):
         for cls in (J.CKKS, T.CKKS):
             with pytest.raises(ValueError):
-                cls("ckks", 128, 40, cryptodir=shared_dir, **kw)
+                cls("ckks", 128, 40, cryptodir=shared_dir, **_cpu(cls), **kw)
     t = _loaded(T.CKKS, shared_dir)
     with pytest.raises(ValueError, match="size mismatch"):
         t.computeWeightedAverage([b"", b""], [1.0])
@@ -187,9 +195,11 @@ def test_refusals_match_jax(shared_dir):
     with pytest.raises(ValueError, match="packing mismatch"):
         s.decrypt(t.encrypt(np.zeros(10)), 10)
     with pytest.raises(RuntimeError, match="first"):
-        T.CKKS("ckks", 128, 40, cryptodir=shared_dir).encrypt(np.zeros(3))
+        T.CKKS("ckks", 128, 40, cryptodir=shared_dir,
+               device="cpu").encrypt(np.zeros(3))
     with pytest.raises(ValueError, match="does not match"):
-        T.CKKS("ckks", 256, 40, cryptodir=shared_dir).loadCryptoParams()
+        T.CKKS("ckks", 256, 40, cryptodir=shared_dir,
+               device="cpu").loadCryptoParams()
 
 
 def test_slot_helper_refuses_a_seeded_blob_that_jax_accepts(shared_dir):

@@ -68,13 +68,20 @@ def test_unflatten_gives_float32_cpu_tensors_in_a_state_dict():
     CNNOriginalFedAvg().load_state_dict(back)
 
 
+def _cpu(cls) -> dict:
+    """device="cpu" for a port class (its default is the card); the JAX
+    classes take no device."""
+    return ({"device": "cpu"} if cls.__module__.startswith("fhe_fed_tpu_torch")
+            else {})
+
+
 @pytest.fixture(scope="module")
 def helpers(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("crypto"))
     J.CKKS("ckks", 128, 40, cryptodir=d, seed=2).genCryptoContextAndKeyGen()
 
     def make(cls):
-        h = cls("ckks", 128, 40, cryptodir=d, seed=21)
+        h = cls("ckks", 128, 40, cryptodir=d, seed=21, **_cpu(cls))
         h.loadCryptoParams()
         return h
     return make

@@ -42,12 +42,13 @@ def _i32(a):
 
 def _tkey(k):
     return interop.kswitch_key_from_numpy(
-        *(np.asarray(a) for a in (k.b, k.b_shoup, k.a, k.a_shoup)))
+        *(np.asarray(a) for a in (k.b, k.b_shoup, k.a, k.a_shoup)),
+        device="cpu")
 
 
 def _tct(ct):
     return interop.ciphertext_from_numpy(np.asarray(ct.data), ct.scale,
-                                         ct.level)
+                                         ct.level, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +69,7 @@ def jax_side():
 
 @pytest.fixture(scope="module", params=["mxu", "butterfly"])
 def port_ctx(request):
-    ctx = T_params.make_context(T_params.make_params(**SMALL))
+    ctx = T_params.make_context(T_params.make_params(**SMALL), device="cpu")
     assert ctx.tables.mxu is not None
     if request.param == "butterfly":
         ctx = dataclasses.replace(
@@ -81,7 +82,8 @@ def port_keys(jax_side):
     _, sk, pk, rlk, gks, *_ = jax_side
     tsk, tpk = interop.keys_from_numpy(
         [np.asarray(x) for x in (sk.s, sk.s_shoup)],
-        [np.asarray(x) for x in (pk.p0, pk.p0_shoup, pk.p1, pk.p1_shoup)])
+        [np.asarray(x) for x in (pk.p0, pk.p0_shoup, pk.p1, pk.p1_shoup)],
+        device="cpu")
     return tsk, tpk, _tkey(rlk), {r: _tkey(k) for r, k in gks.items()}
 
 

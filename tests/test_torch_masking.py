@@ -183,6 +183,13 @@ def test_mask_and_sum_match_the_uint32_forms():
         np.asarray(J_mask._sum_masked_impl(jnp.asarray(want), mask)))
 
 
+def _cpu(cls) -> dict:
+    """device="cpu" for a port class (its default is the card); the JAX
+    classes take no device."""
+    return ({"device": "cpu"} if cls.__module__.startswith("fhe_fed_tpu_torch")
+            else {})
+
+
 def _schemes(tmp_path, learners, n_port):
     """Learners 0 .. n_port-1 from the port, the rest from JAX, on one
     cryptodir; learner i keeps its randomness in rand<i>."""
@@ -192,7 +199,7 @@ def _schemes(tmp_path, learners, n_port):
         out.append(cls("paillier", learners, modulus_bits=BITS,
                        num_bits=NB, precision_bits=PREC,
                        cryptodir=str(tmp_path / "crypto"),
-                       randomnessdir=str(tmp_path / f"rand{i}")))
+                       randomnessdir=str(tmp_path / f"rand{i}"), **_cpu(cls)))
     return out
 
 
@@ -269,7 +276,7 @@ def test_dropout_recovery_subset(tmp_path):
 
 def test_weight_count_mismatch_and_registry(tmp_path):
     s = Masking("paillier", 2, modulus_bits=BITS, cryptodir=str(tmp_path),
-                randomnessdir=str(tmp_path))
+                randomnessdir=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="size mismatch"):
         s.computeWeightedAverage([b"\x00" * 4], [0.5, 0.5])
     with pytest.raises(RuntimeError, match="first"):

@@ -29,7 +29,7 @@ def bench():
     sk_blob = (KEY_DIR / "key-private.txt").read_bytes()
     pk_blob = (KEY_DIR / "key-public.txt").read_bytes()
     jctx = J_params.make_context(J_params.make_params(**BENCH))
-    tctx = T_params.make_context(T_params.make_params(**BENCH))
+    tctx = T_params.make_context(T_params.make_params(**BENCH), device="cpu")
     return jctx, tctx, sk_blob, pk_blob
 
 
@@ -37,8 +37,8 @@ def test_fixture_keys_match_and_reserialize(bench):
     jctx, tctx, sk_blob, pk_blob = bench
     jsk = J_serial.deserialize_secret_key(sk_blob)
     jpk = J_serial.deserialize_public_key(pk_blob)
-    tsk = T_serial.deserialize_secret_key(sk_blob)
-    tpk = T_serial.deserialize_public_key(pk_blob)
+    tsk = T_serial.deserialize_secret_key(sk_blob, device="cpu")
+    tpk = T_serial.deserialize_public_key(pk_blob, device="cpu")
     assert tsk.s.dtype == torch.int32 and tsk.s_shoup.dtype == torch.int64
     for t, j in ((tsk.s, jsk.s), (tsk.s_shoup, jsk.s_shoup),
                  (tpk.p0, jpk.p0), (tpk.p0_shoup, jpk.p0_shoup),
@@ -57,7 +57,7 @@ def test_jax_ciphertext_decrypts_bit_identically_in_port(bench):
     the port's bytes of it are the JAX package's bytes."""
     jctx, tctx, sk_blob, _ = bench
     jsk = J_serial.deserialize_secret_key(sk_blob)
-    tsk = T_serial.deserialize_secret_key(sk_blob)
+    tsk = T_serial.deserialize_secret_key(sk_blob, device="cpu")
     rng = np.random.default_rng(0)
     vals = (rng.standard_normal((2, 8192)) * 0.1).astype(np.float32)
     jct = J_ops.encrypt_symmetric(jctx, jsk, jnp.asarray(vals),
@@ -92,7 +92,7 @@ def test_deserialize_refuses_other_blobs(bench):
         T_serial.deserialize_ct(tctx, hdr.pack(b"XXXX", 1, 8192, 4096, 52, 1,
                                                4, 0, 1.0))
     with pytest.raises(ValueError, match="key blob"):
-        T_serial.deserialize_public_key(sk_blob)
+        T_serial.deserialize_public_key(sk_blob, device="cpu")
 
 
 def test_seeded_and_slot_blobs_cross_both_ways(bench):
@@ -109,7 +109,8 @@ def test_seeded_and_slot_blobs_cross_both_ways(bench):
     np.testing.assert_array_equal(tsct.seed.numpy(), np.asarray(sct.seed))
     assert T_serial.serialize_seeded_ct(tctx, tsct) == blob
     carried = interop.seeded_ciphertext_from_numpy(
-        np.asarray(sct.c0), np.asarray(sct.seed), sct.scale, sct.level)
+        np.asarray(sct.c0), np.asarray(sct.seed), sct.scale, sct.level,
+        device="cpu")
     assert T_serial.serialize_seeded_ct(tctx, carried) == blob
     full = J_serial.serialize_ct(jctx, J_ops.expand_seeded(jctx, sct))
     assert T_serial.serialize_ct(

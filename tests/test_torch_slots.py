@@ -23,7 +23,7 @@ SMALL = dict(batch=128, scale_bits=40, mult_depth=2, ring_dim=256)
 
 def _ctxs():
     return (J_params.make_context(J_params.make_params(**SMALL)),
-            T_params.make_context(T_params.make_params(**SMALL)))
+            T_params.make_context(T_params.make_params(**SMALL), device="cpu"))
 
 
 def test_encode_and_decode_slots_match_jax():

@@ -166,7 +166,7 @@ def test_ternary_and_cbd_match_jax(seed):
 
 def test_keygen_seed_matches_jax_small(small):
     jctx, _ = small
-    tctx = T_params.make_context(T_params.make_params(**SMALL))
+    tctx = T_params.make_context(T_params.make_params(**SMALL), device="cpu")
     jsk, jpk = J_keys.keygen(jctx, seed=9)
     tsk, tpk = T_keys.keygen(tctx, 9)
     for t, j in ((tsk.s, jsk.s), (tsk.s_shoup, jsk.s_shoup),
@@ -181,7 +181,8 @@ def test_bench_keygen_and_kat_digest():
     under key(2024) serializes to the pinned KAT digest."""
     ctx = T_params.make_context(T_params.make_params(batch=4096,
                                                      scale_bits=52,
-                                                     mult_depth=1))
+                                                     mult_depth=1),
+                                device="cpu")
     sk, pk = T_keys.keygen(ctx, 0)
     sk_blob = T_serial.serialize_secret_key(ctx, sk)
     assert sk_blob == (KEY_DIR / "key-private.txt").read_bytes()

@@ -68,11 +68,11 @@ def _keys(seeds):
 
 def _tct(ct):
     return interop.ciphertext_from_numpy(np.asarray(ct.data), ct.scale,
-                                         ct.level)
+                                         ct.level, device="cpu")
 
 
 def _port_ctx(params, branch="mxu"):
-    ctx = T_params.make_context(T_params.make_params(**params))
+    ctx = T_params.make_context(T_params.make_params(**params), device="cpu")
     assert ctx.tables.mxu is not None
     if branch == "butterfly":
         ctx = dataclasses.replace(
@@ -124,7 +124,8 @@ def test_keygen_per_party_and_batched_match_jax(jax_side, port_side):
 def test_interop_party_secrets(jax_side):
     jsec = jax_side[3]
     sec = interop.party_secrets_from_numpy(np.asarray(jsec.s),
-                                           np.asarray(jsec.s_shoup))
+                                           np.asarray(jsec.s_shoup),
+                                           device="cpu")
     assert sec.s.dtype == torch.int32 and sec.s_shoup.dtype == torch.int64
     _same(sec.s, jsec.s)
     _same(sec.s_shoup, jsec.s_shoup)

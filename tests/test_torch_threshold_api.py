@@ -22,6 +22,13 @@ FILES = ("cryptocontext.txt", "key-public.txt", "key-share-0.txt",
          "key-share-1.txt", "key-share-2.txt")
 
 
+def _cpu(cls) -> dict:
+    """device="cpu" for a port class (its default is the card); the JAX
+    classes take no device."""
+    return ({"device": "cpu"} if cls.__module__.startswith("fhe_fed_tpu_torch")
+            else {})
+
+
 def _same_f64(a, b):
     np.testing.assert_array_equal(np.asarray(a).view(np.int64),
                                   np.asarray(b).view(np.int64))
@@ -35,7 +42,7 @@ def pair(tmp_path_factory):
     j = J.ThresholdCKKS("ckks-threshold", 128, 40, cryptodir=str(d / "jax"),
                         parties=3, seed=5)
     t = T.ThresholdCKKS("ckks-threshold", 128, 40, cryptodir=str(d / "port"),
-                        parties=3, seed=5)
+                        parties=3, seed=5, device="cpu")
     j.genCryptoContextAndKeyGen()
     t.genCryptoContextAndKeyGen()
     return j, t, d
@@ -43,7 +50,7 @@ def pair(tmp_path_factory):
 
 def _loaded(cls, d, seed=9):
     h = cls("ckks-threshold", 128, 40, cryptodir=str(d), parties=3,
-            seed=seed)
+            seed=seed, **_cpu(cls))
     h.loadCryptoParams()
     return h
 
@@ -98,10 +105,10 @@ def test_cryptodirs_cross_both_ways(pair):
     for writer, reader_cls, src in ((d / "jax", T.ThresholdCKKS, j),
                                     (d / "port", J.ThresholdCKKS, t)):
         reader = reader_cls("ckks-threshold", 128, 40, cryptodir=str(writer),
-                            parties=3, seed=8)
+                            parties=3, seed=8, **_cpu(reader_cls))
         reader.loadCryptoParams()
         twin = type(src)("ckks-threshold", 128, 40, cryptodir=str(writer),
-                         parties=3, seed=8)
+                         parties=3, seed=8, **_cpu(type(src)))
         twin.loadCryptoParams()
         blob = src.encrypt(x)
         got = reader.decrypt(blob, DIMS)
@@ -144,11 +151,11 @@ def test_refusals(pair):
     for parties in (2, 4):
         for cls in (T.ThresholdCKKS, J.ThresholdCKKS):
             h = cls("ckks-threshold", 128, 40, cryptodir=str(d / "port"),
-                    parties=parties)
+                    parties=parties, **_cpu(cls))
             with pytest.raises(ValueError, match="does not match"):
                 h.loadCryptoParams()
     fresh = T.ThresholdCKKS("ckks-threshold", 128, 40,
-                            cryptodir=str(d / "port"))
+                            cryptodir=str(d / "port"), device="cpu")
     with pytest.raises(RuntimeError, match="first"):
         fresh.decrypt(t.encrypt(np.zeros(3)), 3)
     with pytest.raises(RuntimeError, match="first"):
