@@ -16,9 +16,15 @@ Phases (each raises on failure, so the script exits non-zero):
      N = 2048 (the mma_sync body by the shape rule), K3 also at 64 clients,
      K4 also at 11 live limbs, K2 at the rotation path's shapes and a
      64-chunk batch, and K2 against K1 at N = 8192 (the threshold path's
-     shapes are held in phase 9). Each record carries its bound (bytes over
-     3.35 TB/s, int8 operations over 1,979 TOP/s) and, for K1, the
-     torch._int_mm yardstick of its digit products (gemm_library_ms);
+     shapes are held in phase 9). Each record carries the call's time
+     (`ms`, CUDA events around back-to-back calls, the wrapper's host work
+     included where it exceeds the kernel's) and the kernel's own
+     (`device_ms`, the same calls replayed from a CUDA graph), its bound
+     (bytes over 3.35 TB/s, int8 operations over 1,979 TOP/s) and, for K1,
+     the torch._int_mm yardstick of its digit products (gemm_library_ms),
+     for K3 torch.sum over the client axis (stream_library_ms: the same
+     bytes, not K3's function), for K4 its device time over rotating copies
+     of its input, more than the 50 MB L2 (cold_device_ms);
   4. the FedAvg path at the bench configuration (CNN_OriginalFedAvg,
      1,663,370 parameters x 3 clients, batch 4096 / scale 2^52 / N 8192,
      204 dense chunks) with the committed keys, its context and keys made
@@ -80,7 +86,19 @@ Phases (each raises on failure, so the script exits non-zero):
      our kernels: the path checks that its fixed-point codes, masked values
      and sum are tensors on the card, that each result is within 4 x 2^-13
      of the plaintext mean, and that a CPU helper gives the same bytes;
-     each phase timed (offline ones on the host clock).
+     each phase timed (offline ones on the host clock);
+ 11. the deep path: CKKS at mult_depth 24, the deepest chain make_params
+     accepts (batch 4096, 2^52, dense, secret-key: N 32768, 27 live limbs,
+     51 chunks of the CNN), keygen, then fedavg_round fused and staged
+     and fhe_fedavg over the CNN state_dicts, within 1e-6 of the plaintext
+     (K2, K3, K4); then K3 and K4 bit-exact at 27 live limbs on the path's
+     shapes and at 17 (mult_depth 14, N 32768), K1 at 18 and 28 limbs
+     (ring_dim 16384, mult_depth 14 / 24) on 102 polynomials; rounds timed;
+ 12. the ring65536 path: make_params(batch 4096, 2^40, mult_depth 1,
+     ring_dim 65536), the reference's one-device N = 65536 point, for the
+     CNN's 3 x 1,663,370 values in 26 chunks: keygen -> public-key encrypt
+     -> weighted sum -> decrypt within 1e-6 (K2's two-block body, K3, K4);
+     K2 forward and inverse bit-exact at (26, 4, 65536); the round timed.
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
@@ -95,6 +113,7 @@ import argparse
 import collections
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import pathlib
@@ -166,6 +185,10 @@ PATH_KERNELS = {   # the kernels each driven path must launch
     # Host Paillier and int64 ring sums: no kernel of ours; the path checks
     # that its tensors live on the card instead.
     "masking": (),
+    # N = 32768 and 65536 have no four-step split: K2 serves both.
+    "deep": ("ntt_fused", "intt_fused", "weighted_sum_fused", "decode_fused"),
+    "ring65536": ("ntt_fused", "intt_fused", "weighted_sum_fused",
+                  "decode_fused"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -177,6 +200,10 @@ MKHE_REL_BOUND = 2.0 ** -20
 MASK_LEARNERS = 4
 MASK_OFFLINE_VALUES = 8_500   # 100 Paillier plaintexts of 85 values each
 MASK_GEOMETRY = dict(modulus_bits=2048, num_bits=17, precision_bits=13)
+# The deep path: make_params' mult_depth 14 and 24 give 17 and 27 live
+# limbs at N = 32768 (18 and 28 moduli at ring_dim 16384 for K1).
+DEEP_DEPTHS = (14, 24)
+RING_65536 = dict(batch=4096, scale_bits=40, mult_depth=1, ring_dim=65536)
 
 
 def card() -> str:
@@ -201,6 +228,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """The device's milliseconds per call, without the host's: `reps` calls
+    captured in one CUDA graph (after one warm-up call), the graph replayed
+    once to warm up and once timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 # The least time the card could take (bound_ms): the larger of the bytes a
 # call must move (each input read once, each output written once) over the
 # HBM rate and its tensor-core operations over the int8 rate (NVIDIA H100
@@ -208,6 +257,7 @@ def cuda_ms(fn, reps: int) -> float:
 # integer rate the data sheet does not give: their bound is bytes alone.
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 
 
 def io_bytes(*tensors) -> int:
@@ -263,7 +313,9 @@ def _record(recs, name, got, want, fn, plain_fn, reps, work, plain_reps=3,
             shape=None, **extra):
     """Raise unless `got` equals `want` bit for bit; else append the
     kernel's record (`shape`: its input's, by default the output's) with
-    both times and the bound of `work` (ops, bytes); `extra` keys too (K1:
+    the call's time (`ms`, host work included where it exceeds the
+    kernel's), the kernel's own (`device_ms`, graph_ms), the plain
+    version's and the bound of `work` (ops, bytes); `extra` keys too (K1:
     its body)."""
     torch.cuda.synchronize()
     if got.dtype == torch.float32:
@@ -279,18 +331,62 @@ def _record(recs, name, got, want, fn, plain_fn, reps, work, plain_reps=3,
     recs.append(dict(name=name, route="cuda", source=src, replaces=rep,
                      shape=list(got.shape if shape is None else shape),
                      max_abs_err=err,
-                     ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain_fn,
-                                                            plain_reps),
+                     ms=cuda_ms(fn, reps), device_ms=graph_ms(fn, reps),
+                     plain_ms=cuda_ms(plain_fn, plain_reps),
                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                      **extra))
+
+
+def record_k3(recs, ctx, stacked, weights, reps) -> None:
+    """K3 on `stacked` (K, chunks, 2, live, N) with `weights`, against
+    its plain version; the record also times stream_library_ms,
+    torch.sum(stacked, 0, dtype=int32): the same bytes read and written
+    without the modular products, a ceiling on the bandwidth K3 can reach
+    and not its function."""
+    live = stacked.shape[3]
+    w_res, w_shoup, _ = ops._encode_weights(ctx, weights, live, 0)
+    block = pallas_agg.weight_block(w_res, w_shoup, ctx.params.moduli[:live])
+    wr = torch.as_tensor(w_res, device=stacked.device)
+    ws = torch.as_tensor(w_shoup, device=stacked.device)
+    got = pallas_agg.weighted_sum_fused(stacked, block)
+    _record(recs, "weighted_sum_fused", got,
+            ops._weighted_sum_impl(ctx, stacked, wr, ws),
+            lambda: pallas_agg.weighted_sum_fused(stacked, block),
+            lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
+            (0, io_bytes(stacked, got)), shape=stacked.shape,
+            stream_library_ms=cuda_ms(
+                lambda: torch.sum(stacked, 0, dtype=torch.int32), reps))
+
+
+def record_k4(recs, ctx, res, scale, reps) -> torch.Tensor:
+    """K4 on `res` (chunks, live, N) at `scale` against its plain version;
+    the record also gives cold_device_ms, the kernel's device time over
+    copies of `res` taken in turn, more than three times the 50 MB L2 in
+    all, so that no call finds its input in L2. Returns the decode."""
+    live = res.shape[1]
+    dc, qs = ctx.dec_consts[live - 1], ctx.q[:live]
+    got = pallas_decode.decode_fused(ctx, dc, res, scale)
+    copies = [res.clone()
+              for _ in range(min(64, 3 * L2_BYTES // io_bytes(res) + 2))]
+    turn = itertools.count()
+    cold = graph_ms(lambda: pallas_decode.decode_fused(
+        ctx, dc, copies[next(turn) % len(copies)], scale), 2 * len(copies))
+    del copies
+    _record(recs, "decode_fused", got,
+            encoding.decode_core(dc, qs, res, scale),
+            lambda: pallas_decode.decode_fused(ctx, dc, res, scale),
+            lambda: encoding.decode_core(dc, qs, res, scale), reps,
+            (0, io_bytes(res, got)), shape=res.shape, cold_device_ms=cold)
+    return got
 
 
 def print_records(recs: list[dict], gpu: str) -> None:
     for r in recs:
         body = f" [{r['body']}]" if "body" in r else ""
         print(f"kernel {r['name']}{body} {r['shape']}: bit-exact, "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) ({gpu})", flush=True)
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}) vs plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) ({gpu})", flush=True)
 
 
 def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
@@ -301,43 +397,21 @@ def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
     moduli = ctx.params.moduli
     mt = ctx.tables.mxu.slice_limbs(0, L)
     recs = []
-
-    def record(name, got, want, fn, plain_fn, work, shape=None, **extra):
-        _record(recs, name, got, want, fn, plain_fn, reps, work, shape=shape,
-                **extra)
-
     x = uniform_mod_q(gen, (K * chunks, L, n), moduli)
     xe = uniform_mod_q(gen, (chunks, L, n), moduli)
     for fwd, xi in ((True, x), (False, xe)):
         kern, plain = k1_pair(fwd)
-        record(kern.__name__, kern(xi, mt), plain(xi, mt),
-               lambda: kern(xi, mt), lambda: plain(xi, mt),
-               k1_work(xi, mt, fwd), **k1_extra(mt),
-               gemm_library_ms=k1_gemm_library_ms(xi.shape, mt, fwd, gen))
+        _record(recs, kern.__name__, kern(xi, mt), plain(xi, mt),
+                lambda: kern(xi, mt), lambda: plain(xi, mt), reps,
+                k1_work(xi, mt, fwd), **k1_extra(mt),
+                gemm_library_ms=k1_gemm_library_ms(xi.shape, mt, fwd, gen))
 
-    stacked = uniform_mod_q(gen, (K, chunks, 2, L, n), moduli)
-    w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
-    wr = torch.as_tensor(w_res, device=stacked.device)
-    ws = torch.as_tensor(w_shoup, device=stacked.device)
-    got = pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L])
-    record("weighted_sum_fused", got,
-           ops._weighted_sum_impl(ctx, stacked, wr, ws),
-           lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
-                                                 moduli[:L]),
-           lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws),
-           (0, io_bytes(stacked, got)), stacked.shape)
-
+    record_k3(recs, ctx, uniform_mod_q(gen, (K, chunks, 2, L, n), moduli),
+              weights, reps)
     # Real decrypt residues of an aggregated round.
     agg = ops.weighted_sum(
         ctx, ops.encrypt_symmetric_stacked(ctx, sk, values, gen), weights)
-    res = ops.decrypt_residues(ctx, sk, agg)
-    dc = ctx.dec_consts[L - 1]
-    qs = ctx.q[:L]
-    got = pallas_decode.decode_fused(ctx, dc, res, agg.scale)
-    record("decode_fused", got, encoding.decode_core(dc, qs, res, agg.scale),
-           lambda: pallas_decode.decode_fused(ctx, dc, res, agg.scale),
-           lambda: encoding.decode_core(dc, qs, res, agg.scale),
-           (0, io_bytes(res, got)), res.shape)
+    record_k4(recs, ctx, ops.decrypt_residues(ctx, sk, agg), agg.scale, reps)
     return recs
 
 
@@ -414,39 +488,24 @@ def check_repairs(ctx, gen, chunks, n_clients=64, live_ctx=None,
     length of `live_ctx` (> 8 live limbs) on encoded values."""
     recs = []
     L = ctx.params.chain_len
-    n = ctx.ring_dim
-    moduli = ctx.params.moduli
-    stacked = uniform_mod_q(gen, (n_clients, chunks, 2, L, n), moduli)
-    weights = [1.0 / n_clients] * n_clients
-    w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
-    wr = torch.as_tensor(w_res, device=stacked.device)
-    ws = torch.as_tensor(w_shoup, device=stacked.device)
-    got = pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup, moduli[:L])
-    _record(recs, "weighted_sum_fused", got,
-            ops._weighted_sum_impl(ctx, stacked, wr, ws),
-            lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
-                                                  moduli[:L]),
-            lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
-            (0, io_bytes(stacked, got)), shape=stacked.shape)
-    del stacked, got
+    record_k3(recs, ctx, uniform_mod_q(
+        gen, (n_clients, chunks, 2, L, ctx.ring_dim), ctx.params.moduli),
+        [1.0 / n_clients] * n_clients, reps)
+    record_k4_encoded(recs, live_ctx, gen, chunks, reps)
+    return recs
 
-    live = live_ctx.params.chain_len
-    vals = torch.randn((chunks, live_ctx.ring_dim), generator=gen,
+
+def record_k4_encoded(recs, ctx, gen, chunks, reps) -> None:
+    """K4 at ctx's chain length on `chunks` encoded polynomials of seeded
+    values (normal x 100), the decode also within MAX_ERR of the values."""
+    live = ctx.params.chain_len
+    vals = torch.randn((chunks, ctx.ring_dim), generator=gen,
                        device=gen.device) * 100
-    res = encoding.encode_coeff(live_ctx, vals, live_ctx.params.scale)
-    dc = live_ctx.dec_consts[live - 1]
-    qs = live_ctx.q[:live]
-    scale = live_ctx.params.scale
-    got = pallas_decode.decode_fused(live_ctx, dc, res, scale)
-    _record(recs, "decode_fused", got,
-            encoding.decode_core(dc, qs, res, scale),
-            lambda: pallas_decode.decode_fused(live_ctx, dc, res, scale),
-            lambda: encoding.decode_core(dc, qs, res, scale), reps,
-            (0, io_bytes(res, got)), shape=res.shape)
+    res = encoding.encode_coeff(ctx, vals, ctx.params.scale)
+    got = record_k4(recs, ctx, res, ctx.params.scale, reps)
     err = _max_abs_err(got, vals)
     if not err <= MAX_ERR:
         raise AssertionError(f"decode at live={live}: max_err {err}")
-    return recs
 
 
 def check_butterfly(rot_ctx, mult_ctx, gen, chunks, reps=10) -> list[dict]:
@@ -485,6 +544,114 @@ def check_butterfly(rot_ctx, mult_ctx, gen, chunks, reps=10) -> list[dict]:
         torch.cuda.synchronize()
         if not torch.equal(k1, k2):
             raise AssertionError(f"K2 differs from K1 at N=8192 (fwd={fwd})")
+    return recs
+
+
+def check_k1_deep(gen, batch, reps=10) -> list[dict]:
+    """K1 at 18 and 28 limbs (make_params(ring_dim=16384, mult_depth=14 /
+    24): the moduli of a fresh ciphertext and the special prime), forward
+    and inverse on `batch` polynomials, against its plain version."""
+    recs = []
+    for depth in DEEP_DEPTHS:
+        moduli = P.make_params(batch=4096, scale_bits=52, mult_depth=depth,
+                               ring_dim=16384).moduli
+        mt = mxu.make_mxu_tables(16384, moduli, device=gen.device)
+        x = uniform_mod_q(gen, (batch, len(moduli), 16384), moduli)
+        for fwd in (True, False):
+            kern, plain = k1_pair(fwd)
+            _record(recs, kern.__name__, kern(x, mt), plain(x, mt),
+                    lambda: kern(x, mt), lambda: plain(x, mt), reps,
+                    k1_work(x, mt, fwd), **k1_extra(mt))
+        del x, mt
+    return recs
+
+
+def deep_helper(cryptodir: pathlib.Path, dev, seed=13) -> CKKS:
+    """The bench configuration's drop-in helper (batch 4096, 2^52, dense,
+    secret-key) at the deepest chain make_params accepts, mult_depth 24:
+    N = 32768, 27 live limbs; keys generated into cryptodir."""
+    h = CKKS("ckks", 4096, 52, cryptodir=str(cryptodir),
+             mult_depth=DEEP_DEPTHS[-1], dense_pack=True, symmetric=True,
+             seed=seed, device=dev)
+    h.genCryptoContextAndKeyGen()
+    return h
+
+
+def run_deep_path(h: CKKS, cnn_vecs, state_dicts) -> dict:
+    """The bench round through the drop-in surface: fedavg_round fused
+    and staged (cohort encrypt -> weighted sum -> decrypt) and fhe_fedavg
+    over CNN state_dicts."""
+    outs = {"round_fused": h.fedavg_round(cnn_vecs, API_WEIGHTS),
+            "round_staged": h.fedavg_round(cnn_vecs, API_WEIGHTS,
+                                           fused=False),
+            "fhe_fedavg_full": fhe_fedavg(h, state_dicts, API_WEIGHTS)}
+    torch.cuda.synchronize()
+    return outs
+
+
+def check_deep_kernels(h: CKKS, cnn_vecs, gen, reps=10) -> list[dict]:
+    """K3 and K4 at 27 live limbs on the deep path's shapes (the cohort
+    stack, the decrypt residues of an aggregated round) and at 17 live
+    limbs (make_params(mult_depth=14), N = 32768: uniform stack, encoded
+    values), each against its plain version."""
+    recs = []
+    ctx, sk = h.ctx, h._sk
+    values = h.pack_cohort(cnn_vecs)
+    chunks = values.shape[1]
+    for depth in DEEP_DEPTHS:
+        c = ctx if depth == DEEP_DEPTHS[-1] else P.make_context(
+            P.make_params(batch=4096, scale_bits=52, mult_depth=depth),
+            gen.device)
+        L = c.params.chain_len
+        record_k3(recs, c, uniform_mod_q(
+            gen, (N_CLIENTS, chunks, 2, L, c.ring_dim), c.params.moduli),
+            API_WEIGHTS, reps)
+        if c is ctx:
+            agg = ops.weighted_sum(ctx, ops.encrypt_symmetric_stacked(
+                ctx, sk, values, gen), API_WEIGHTS)
+            record_k4(recs, ctx, ops.decrypt_residues(ctx, sk, agg),
+                      agg.scale, reps)
+            del agg
+        else:
+            record_k4_encoded(recs, c, gen, chunks, reps)
+        del c
+    return recs
+
+
+def ring65536_setup(dev, n_values: int, seed=14):
+    """make_params(batch 4096, 2^40, mult_depth 1, ring_dim 65536), the
+    reference's one-device N = 65536 point (tests/test_dist_ckks.py), and
+    N_CLIENTS seeded payloads of n_values dense-packed into its ring."""
+    ctx = P.make_context(P.make_params(**RING_65536), dev)
+    n = ctx.ring_dim
+    vals, weights, want = make_values(N_CLIENTS, n_values,
+                                      -(-n_values // n), n, seed)
+    return ctx, torch.as_tensor(vals, device=dev), weights, want
+
+
+def run_ring65536_path(ctx, values, weights, seed=14) -> dict:
+    """keygen -> public-key encrypt -> weighted sum -> decrypt."""
+    sk, pk = keys.keygen(ctx, seed)
+    ct = ops.encrypt_stacked(ctx, pk, values, threefry.key(seed, ctx.device))
+    out = ops.decrypt(ctx, sk, ops.weighted_sum(ctx, ct, weights))
+    torch.cuda.synchronize()
+    return {"public_key": out}
+
+
+def check_butterfly_65536(ctx, gen, chunks, reps=10) -> list[dict]:
+    """K2 forward and inverse at (chunks, chain, 65536), the two-block body,
+    against its plain version."""
+    recs = []
+    tb = ctx.tables.slice_limbs(0, ctx.params.chain_len)
+    x = uniform_mod_q(gen, (chunks, ctx.params.chain_len, ctx.ring_dim),
+                      ctx.params.moduli)
+    for fwd in (True, False):
+        kern = pallas_ntt.ntt_fused if fwd else pallas_ntt.intt_fused
+        plain = ntt_mod.ntt_butterfly if fwd else ntt_mod.intt_butterfly
+        got = kern(x, tb)
+        _record(recs, kern.__name__, got, plain(x, tb),
+                lambda: kern(x, tb), lambda: plain(x, tb), reps,
+                (0, io_bytes(x, got, tb.tw_fwd if fwd else tb.tw_inv)))
     return recs
 
 
@@ -695,14 +862,25 @@ def run_api_path(hs: dict, cnn_vecs, bert_vecs, slot_vecs,
 
 def check_api(outs: dict, wants: dict, blobs: dict, state_dicts,
               dev) -> dict:
+    """result_errors with wants["bert"] for the streamed round,
+    wants["slots"] for slot mode, wants["cnn"] for the other vectors; the
+    seeded blob is at most FFTS_RATIO of the full one."""
+    errs = result_errors(outs, wants, state_dicts, dev,
+                         {"round_streamed": "bert", "bytes_slots": "slots"})
+    ratio = len(blobs["seeded_fresh"]) / len(blobs["symmetric"])
+    if not ratio <= FFTS_RATIO:
+        raise AssertionError(f"FFTS / FFTC bytes {ratio} > {FFTS_RATIO}")
+    return dict(errs, ffts_over_fftc=ratio)
+
+
+def result_errors(outs: dict, wants: dict, state_dicts, dev,
+                  ref: dict) -> dict:
     """Each result finite, of the right shape and within MAX_ERR of its
-    plaintext reference: wants["bert"] for the streamed round,
-    wants["slots"] for slot mode, wants["cnn"] for the other vectors,
-    plain_fedavg for the state_dicts. The seeded blob is at most FFTS_RATIO
-    of the full one; each fhe_fedavg result loads into a module whose
-    forward on a seeded batch is finite."""
+    plaintext reference: wants[ref.get(name, "cnn")] for vectors,
+    plain_fedavg for the fhe_fedavg_* state_dicts, each of which loads into
+    a module whose forward on a seeded batch is finite. Returns the max
+    errors."""
     plain = plain_fedavg(state_dicts, API_WEIGHTS)
-    ref = {"round_streamed": "bert", "bytes_slots": "slots"}
     errs = {}
     for name, got in outs.items():
         if name.startswith("fhe_fedavg_"):
@@ -727,11 +905,8 @@ def check_api(outs: dict, wants: dict, blobs: dict, state_dicts,
         errs[name] = float(np.max(np.abs(got_f.astype(np.float64) - want)))
     bad = {k: e for k, e in errs.items() if not e <= MAX_ERR}
     if bad:
-        raise AssertionError(f"API path: max_err above {MAX_ERR}: {bad}")
-    ratio = len(blobs["seeded_fresh"]) / len(blobs["symmetric"])
-    if not ratio <= FFTS_RATIO:
-        raise AssertionError(f"FFTS / FFTC bytes {ratio} > {FFTS_RATIO}")
-    return dict(errs, ffts_over_fftc=ratio)
+        raise AssertionError(f"max_err above {MAX_ERR}: {bad}")
+    return errs
 
 
 def _same_key(a, b) -> bool:
@@ -900,29 +1075,12 @@ def check_threshold_kernels(ctx, secrets, cts, gen, weights=None,
                 lambda: mxu_pallas.intt_mxu_fused(acc, mt),
                 lambda: mxu.intt_mxu(acc, mt), reps, k1_work(acc, mt, False),
                 **k1_extra(mt))
-        dc, qs = ctx.dec_consts[live - 1], ctx.q[:live]
-        got = pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale)
-        _record(recs, "decode_fused", got,
-                encoding.decode_core(dc, qs, coeffs, ct.scale),
-                lambda: pallas_decode.decode_fused(ctx, dc, coeffs, ct.scale),
-                lambda: encoding.decode_core(dc, qs, coeffs, ct.scale), reps,
-                (0, io_bytes(coeffs, got)), shape=coeffs.shape)
+        record_k4(recs, ctx, coeffs, ct.scale, reps)
     if weights is not None:
         L = ctx.params.chain_len
-        moduli = ctx.params.moduli
-        stacked = uniform_mod_q(gen, (len(weights), cts[0].num_chunks, 2, L,
-                                      ctx.ring_dim), moduli)
-        w_res, w_shoup, _ = ops._encode_weights(ctx, weights, L, 0)
-        wr = torch.as_tensor(w_res, device=dev)
-        ws = torch.as_tensor(w_shoup, device=dev)
-        got = pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
-                                            moduli[:L])
-        _record(recs, "weighted_sum_fused", got,
-                ops._weighted_sum_impl(ctx, stacked, wr, ws),
-                lambda: pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
-                                                      moduli[:L]),
-                lambda: ops._weighted_sum_impl(ctx, stacked, wr, ws), reps,
-                (0, io_bytes(stacked, got)), shape=stacked.shape)
+        record_k3(recs, ctx, uniform_mod_q(
+            gen, (len(weights), cts[0].num_chunks, 2, L, ctx.ring_dim),
+            ctx.params.moduli), weights, reps)
     return recs
 
 
@@ -1231,6 +1389,57 @@ def masking_path(dev, gpu: str, n_values: int = CNN_PARAMS
     return mask_counts
 
 
+def deep_path(dev, gpu: str, cnn_vecs, cnn_want: np.ndarray, state_dicts,
+              gen) -> tuple[collections.Counter, list[dict]]:
+    """The deep path (mult_depth 24: N 32768, 27 live limbs) under drive()
+    and its checks, the kernels at 17 and 27 live limbs (K3, K4) and at 18
+    and 28 limbs (K1), then its rounds timed. Returns the path's launch
+    counts and the kernel records."""
+    t0 = time.perf_counter()
+    h = deep_helper(ROOT / "build" / "deep_cryptodir", dev)
+    ctx = h.ctx
+    chunks = -(-cnn_vecs[0].size // ctx.ring_dim)
+    print(f"deep setup: N={ctx.ring_dim} chain={ctx.params.chain_len} "
+          f"limbs={ctx.num_limbs} chunks={chunks} clients={N_CLIENTS} "
+          f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    outs, counts = drive("deep", lambda: run_deep_path(h, cnn_vecs,
+                                                       state_dicts))
+    errs = result_errors(outs, {"cnn": cnn_want}, state_dicts, dev, {})
+    print(f"deep path: max_err {json.dumps(errs)} launches {counts}",
+          flush=True)
+    del outs
+    recs = check_deep_kernels(h, cnn_vecs, gen)
+    recs += check_k1_deep(gen, -(-cnn_vecs[0].size // 16384))
+    print_records(recs, gpu)
+    for k, fn in {
+            "deep_round_fused": lambda: h.fedavg_round(cnn_vecs, API_WEIGHTS),
+            "deep_round_staged": lambda: h.fedavg_round(
+                cnn_vecs, API_WEIGHTS, fused=False)}.items():
+        print(f"phase {k}_ms: {cuda_ms(fn, 2):.4f} ({gpu})", flush=True)
+    return counts, recs
+
+
+def ring65536_path(dev, gpu: str, gen) -> tuple[collections.Counter,
+                                                 list[dict]]:
+    """The N = 65536 path under drive() and its check, K2 at its shapes,
+    then the round timed. Returns the path's launch counts and records."""
+    t0 = time.perf_counter()
+    ctx, values, weights, want = ring65536_setup(dev, CNN_PARAMS)
+    print(f"ring65536 setup: N={ctx.ring_dim} chain={ctx.params.chain_len} "
+          f"limbs={ctx.num_limbs} chunks={values.shape[1]} clients="
+          f"{N_CLIENTS} setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    outs, counts = drive("ring65536", lambda: run_ring65536_path(
+        ctx, values, weights))
+    err = check_outputs(outs, want, CNN_PARAMS)
+    print(f"ring65536 path: max_err {err!r} launches {counts}", flush=True)
+    del outs
+    recs = check_butterfly_65536(ctx, gen, values.shape[1])
+    print_records(recs, gpu)
+    ms = cuda_ms(lambda: run_ring65536_path(ctx, values, weights), 2)
+    print(f"phase ring65536_round_ms: {ms:.4f} ({gpu})", flush=True)
+    return counts, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=pathlib.Path, default=None,
@@ -1445,10 +1654,15 @@ def main() -> int:
                                           args.profile)
     recs += thr_recs
     mask_counts = masking_path(dev, gpu)
+    deep_counts, deep_recs = deep_path(dev, gpu, cnn_vecs, cnn_want, sds,
+                                       gen)
+    recs += deep_recs
+    ring_counts, ring_recs = ring65536_path(dev, gpu, gen)
+    recs += ring_recs
 
     launches = collections.Counter()
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
-              mask_counts):
+              mask_counts, deep_counts, ring_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

@@ -372,8 +372,8 @@ def _aggregate(ctx: CkksContext, stacked: torch.Tensor, w_res: np.ndarray,
                w_shoup: np.ndarray) -> torch.Tensor:
     live = stacked.shape[3]
     if stacked.is_cuda:
-        return pallas_agg.weighted_sum_fused(stacked, w_res, w_shoup,
-                                             ctx.params.moduli[:live])
+        return pallas_agg.weighted_sum_fused(stacked, pallas_agg.weight_block(
+            w_res, w_shoup, ctx.params.moduli[:live]))
     if stacked.device.type != "cpu":
         raise ValueError(f"no weighted-sum backend for {stacked.device}")
     return _weighted_sum_impl(ctx, stacked, torch.as_tensor(w_res),

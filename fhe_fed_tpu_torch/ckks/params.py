@@ -93,8 +93,8 @@ def make_params(batch: int = 4096, scale_bits: int = 52,
 @dataclasses.dataclass(frozen=True)
 class DecodeConsts:
     """Exact-CRT decode constants for `live` limbs, host numpy (the decode
-    kernel takes them as launch arguments; the plain decode moves the few it
-    broadcasts to the data's device)."""
+    kernel builds its device block from them, pallas_decode.kernel_consts;
+    the plain decode moves the few it broadcasts to the data's device)."""
     live: int
     ndig: int                      # 16-bit digit planes
     punc_inv: np.ndarray           # (live,)   (Q/q_l)^-1 mod q_l, int64
@@ -102,6 +102,10 @@ class DecodeConsts:
     m_digits: np.ndarray           # (live, ndig) 16-bit digits of Q/q_l
     q_digits: np.ndarray           # (ndig,) digits of Q
     inv_q_f32: np.ndarray          # (live,) f32(1/q_l)
+    # (live*4, 2*ndig) uint8: row (l, i), column d8 = byte (d8 - i) of
+    # Q/q_l, so bytes(y) @ m_bytes is sum_l y_l * Q/q_l in base-256 planes
+    # (the decode kernel's tensor-core product).
+    m_bytes: np.ndarray
 
 
 def _make_decode_consts(moduli: tuple[int, ...], live: int) -> DecodeConsts:
@@ -117,13 +121,20 @@ def _make_decode_consts(moduli: tuple[int, ...], live: int) -> DecodeConsts:
 
     punc_inv = np.array([pow(Q // q % q, q - 2, q) for q in qs],
                         dtype=np.int64)
+    m_bytes = np.zeros((live * 4, 2 * ndig), dtype=np.uint8)
+    for l, q in enumerate(qs):
+        mb = np.frombuffer((Q // q).to_bytes(2 * ndig, "little"),
+                           dtype=np.uint8)
+        for i in range(4):
+            m_bytes[4 * l + i, i:] = mb[:2 * ndig - i]
     return DecodeConsts(
         live=live, ndig=ndig,
         punc_inv=punc_inv,
         punc_inv_shoup=modops.shoup_precompute(punc_inv, np.array(qs)),
         m_digits=np.stack([digits(Q // q) for q in qs]),
         q_digits=digits(Q),
-        inv_q_f32=np.array([1.0 / q for q in qs], dtype=np.float32))
+        inv_q_f32=np.array([1.0 / q for q in qs], dtype=np.float32),
+        m_bytes=m_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +150,10 @@ class CkksContext:
     dec_consts: tuple              # tuple[DecodeConsts], index = live - 1
     tables: ntt_tables.NttTables   # all L limbs, special prime included
     rescale_inv: tuple             # per level: (q_top^-1 mod q_j, Shoup), int64
+    # Device blocks the decode kernel builds once per (live, scale, device)
+    # from dec_consts (ckks/pallas_decode.py).
+    decode_blocks: dict = dataclasses.field(default_factory=dict,
+                                            compare=False, repr=False)
 
     @property
     def ring_dim(self) -> int:

@@ -74,7 +74,7 @@ namespace {
 // The mma.sync body: one block per (poly, limb), B fragments from L2.
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxLimbs = 16;
+constexpr int kMaxLimbs = 32;     // make_params reaches 28 moduli
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 16;        // bytes appended to each digit row
@@ -901,7 +901,7 @@ int launch_wg_dir(void* out, const void* x, const void* w1, const void* w2,
 // x, out: (B, L, N) int32, N = n1*n2 with n1, n2 multiples of 16, <= 128.
 // w1: (L, 4*n1, 4*n1) int8 n-major (MxuNttTables.w*), w2: (L, 4*n2, 4*n2),
 // mid: (L, N) int32, mid_shoup: (L, N) int64; limb_consts: host
-// uint32[4][16] (q, 2^32 mod q, its Shoup word, the plane offset mod q).
+// uint32[4][32] (q, 2^32 mod q, its Shoup word, the plane offset mod q).
 extern "C" int fhe_ntt_mxu_sync(void* out, const void* x, const void* w1,
                            const void* w2, const void* mid,
                            const void* mid_shoup, const void* limb_consts,
@@ -925,7 +925,7 @@ extern "C" int fhe_ntt_mxu_sync(void* out, const void* x, const void* w1,
 // The wgmma body (n1, n2 in {64, 128}).
 // x, out: (B, L, N) int32; w1: (L, 4*n1, 4*n1) int8 and w2: (L, 4*n2, 4*n2)
 // in wg_layout (ntt/mxu.py); mid_pair: (L, N, 2) int32, each twiddle beside
-// the low word of its Shoup companion; limb_consts: host uint32[4][16] as
+// the low word of its Shoup companion; limb_consts: host uint32[4][32] as
 // for fhe_ntt_mxu_sync.
 extern "C" int fhe_ntt_mxu_wg(void* out, const void* x, const void* w1,
                               const void* w2, const void* mid_pair,

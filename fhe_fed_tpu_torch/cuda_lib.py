@@ -47,7 +47,6 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 _SIGNATURES = {
     # out, x, w1, w2, mid_pair, limb_consts(host), B, L, n1, n2, forward,
     # stream
@@ -57,11 +56,10 @@ _SIGNATURES = {
     "fhe_ntt_mxu_sync": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # out, x, tw, consts(host), B, L, n, forward, stream
     "fhe_ntt_butterfly": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # out, x, weights(device), weights(host), moduli(host), K, live, n,
-    # per_client, stream
-    "fhe_weighted_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
-    # out, x, consts(host), chunks, n, stream
-    "fhe_decode_crt": (_P, _P, _P, _I, _I, _P),
+    # out, x, pairs(device or null), block(host), K, live, n, rows, stream
+    "fhe_weighted_sum": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # out, x, consts(device), words, live, chunks, n, stream
+    "fhe_decode_crt": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -24,13 +24,13 @@ import torch
 from .. import cuda_lib
 from .mxu import MxuNttTables
 
-_MAX_LIMBS = 16
+_MAX_LIMBS = 32          # kMaxLimbs: make_params reaches 28 moduli
 
 
 def operands(mt: MxuNttTables, forward: bool):
     """What K1's body for this ring reads, in its C entry's order: the
     device tables, their dtypes, and the per-limb constants (host uint32
-    (4, 16): q, 2^32 mod q, its Shoup word, the plane offset mod q)."""
+    (4, 32): q, 2^32 mod q, its Shoup word, the plane offset mod q)."""
     if mt.body == "wgmma":
         tabs = ((mt.w1f, mt.w2f, mt.midf_pair) if forward
                 else (mt.w1i, mt.w2i, mt.midi_pair))

@@ -3,9 +3,11 @@ butterfly NTT / iNTT in one pass, the polynomial held in shared memory.
 
 The counterpart of fhe_fed_tpu/ntt/pallas_ntt.py (ntt_fused, intt_fused),
 bit-identical to ntt.ntt_butterfly / ntt.intt_butterfly, its plain
-version. It takes every power-of-two ring from 256 to 32768; a larger ring
-does not fit a block's shared memory and raises. CUDA tensors only: the
-dispatch in ntt/ntt.py sends CPU tensors to the plain version.
+version. It takes every power-of-two ring from 256 to 65536: up to 32768
+a polynomial sits in one block's shared memory, at 65536 in two blocks of
+one half each (a two-block cluster for the inverse); a larger ring raises.
+CUDA tensors only: the dispatch in ntt/ntt.py sends CPU tensors to the
+plain version.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .. import cuda_lib
 from .tables import NttTables
 
 MIN_RING = 256
-MAX_RING = 32768          # 128 KB of int32 residues in shared memory
+MAX_RING = 65536          # two blocks of 128 KB of int32 residues
 _MAX_LIMBS = 64
 
 
@@ -32,8 +34,9 @@ def _call(x: torch.Tensor, tb: NttTables, forward: bool) -> torch.Tensor:
                          f"tables (L={tb.num_limbs}, N={tb.ring_dim})")
     if not MIN_RING <= n <= MAX_RING:
         raise ValueError(f"{name}: N={n} outside [{MIN_RING}, {MAX_RING}]: "
-                         f"the kernel keeps the whole polynomial in shared "
-                         f"memory, which holds at most N={MAX_RING}")
+                         f"the kernel keeps the whole polynomial in the "
+                         f"shared memory of at most two blocks, which hold "
+                         f"N={MAX_RING}")
     if L > _MAX_LIMBS:
         raise ValueError(f"{name}: L={L} > {_MAX_LIMBS} limbs")
     tw = tb.tw_fwd if forward else tb.tw_inv

@@ -82,7 +82,7 @@ def test_weighted_sum_kernel_refuses_cpu_tensors():
     x = torch.zeros((3, 1, 2, 4, 256), dtype=torch.int32)
     w = np.ones((3, 4), dtype=np.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        T_pagg.weighted_sum_fused(x, w, w, (3, 5, 7, 11))
+        T_pagg.weighted_sum_fused(x, T_pagg.weight_block(w, w, (3, 5, 7, 11)))
 
 
 def _noise(rng, shape):

@@ -6,13 +6,15 @@ host run them with
 
 They repeat chip_smoke.py's phases at smaller sizes, plus the shapes and
 options the paths do not reach (small rings, K > 8, every live-limb count
-of the decode, both NTT kernels on one ring), and hold the threefry
+of the decode up to 27, K1 up to 28 limbs, K2 at N = 65536, both NTT
+kernels on one ring), and hold the threefry
 sampling, the CKKS bytes surface, the FFTS expansion, the threshold
 ceremonies and the masking scheme's online phase on the card equal to the
 CPU.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -51,12 +53,14 @@ def _gen(dev, seed=0):
     (256, 3, 3, 31), (512, 2, 19, 31), (8192, 5, 7, 31), (16384, 3, 3, 31),
     (8192, 16, 2, 31), (8192, 4, 5, 31), (4096, 5, 1, 31), (8192, 1, 3, 31),
     (2048, 1, 2, 31), (8192, 3, 5, 22), (8192, 3, 5, 26), (8192, 3, 5, 30),
-    (2048, 3, 5, 22)])
+    (2048, 3, 5, 22), (16384, 18, 2, 31), (16384, 28, 2, 31),
+    (8192, 28, 3, 31), (2048, 28, 3, 31)])
 def test_ntt_kernel_matches_plain(dev, n, L, batch, bits):
     """K1 by the shape rule (mma_sync below N = 4096, wgmma from it), odd
     batches included (B polynomials of a limb go two to a CTA), one limb
-    alone (ModDown's and the rescale's inverse), and `bits`-bit primes:
-    both bodies are exact for every q < 2^31 (the paths use 31-bit ones)."""
+    alone (ModDown's and the rescale's inverse), up to 28 limbs (the most
+    make_params gives), and `bits`-bit primes: both bodies are exact for
+    every q < 2^31 (the paths use 31-bit ones)."""
     mod = primes.ntt_primes(n, L, target_bits=bits)
     mt = mxu.make_mxu_tables(n, mod, device=dev)
     x = uniform_mod_q(_gen(dev, n), (batch, L, n), mod)
@@ -84,8 +88,28 @@ def test_ntt_kernel_on_taken_limbs(dev, n):
     assert torch.equal(z, x)
 
 
+@pytest.mark.parametrize("mult_depth", [14, 24])
+def test_ntt_on_deep_chain_tables(dev, mult_depth):
+    """The NTT dispatch on make_params(ring_dim=16384, mult_depth=14 / 24)
+    context tables (18 / 28 limbs) runs K1 on the card, equal to its plain
+    version."""
+    ctx = P.make_context(P.make_params(batch=4096, scale_bits=52,
+                                       mult_depth=mult_depth,
+                                       ring_dim=16384), dev)
+    assert ctx.num_limbs == mult_depth + 4
+    x = uniform_mod_q(_gen(dev, mult_depth), (3, ctx.num_limbs, 16384),
+                      ctx.params.moduli)
+    cuda_lib.launches.clear()
+    y = ntt_mod.ntt(x, ctx.tables)
+    assert torch.equal(y, mxu.ntt_mxu(x, ctx.tables.mxu))
+    assert torch.equal(ntt_mod.intt(y, ctx.tables), x)
+    assert cuda_lib.launches["ntt_mxu_fused"] == 1
+    assert cuda_lib.launches["intt_mxu_fused"] == 1
+
+
 @pytest.mark.parametrize("n,L,batch", [(256, 3, 5), (4096, 2, 3),
-                                       (32768, 2, 2)])
+                                       (32768, 2, 2), (65536, 2, 3),
+                                       (65536, 5, 2)])
 def test_butterfly_kernel_matches_plain(dev, n, L, batch):
     tb = tables.make_tables(n, primes.ntt_primes(n, L), device=dev)
     x = uniform_mod_q(_gen(dev, n), (batch, L, n), tuple(tb.q))
@@ -107,22 +131,28 @@ def test_butterfly_kernel_matches_k1(dev):
 
 
 def test_butterfly_kernel_refuses_larger_rings(dev):
-    tb = tables.make_tables(65536, primes.ntt_primes(65536, 1))
-    x = torch.zeros((1, 1, 65536), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="32768"):
+    tb = tables.make_tables(131072, primes.ntt_primes(131072, 1))
+    x = torch.zeros((1, 1, 131072), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="65536"):
         pallas_ntt.ntt_fused(x, tb)
 
 
-@pytest.mark.parametrize("K", [1, 9, 16, 17, 64])
-def test_weighted_sum_kernel_matches_plain(dev, K):
+@pytest.mark.parametrize("mult_depth", [1, 14, 24])
+@pytest.mark.parametrize("K", [1, 3, 8, 9, 16, 17, 64])
+def test_weighted_sum_kernel_matches_plain(dev, K, mult_depth):
+    """K <= 8 (one template per K), larger K (the loop by fours), at 4, 17
+    and 27 live limbs; K * live > 384 takes the pairs from a device
+    buffer."""
     ctx = P.make_context(P.make_params(batch=128, scale_bits=40,
-                                       mult_depth=1, ring_dim=256), dev)
+                                       mult_depth=mult_depth, ring_dim=256),
+                         dev)
     L = ctx.params.chain_len
     stacked = uniform_mod_q(_gen(dev, K), (K, 5, 2, L, 256),
                             ctx.params.moduli)
     w = list(np.random.default_rng(K).uniform(0, 1, K))
     wr, ws, _ = ops._encode_weights(ctx, w, L, 0)
-    got = pallas_agg.weighted_sum_fused(stacked, wr, ws, ctx.params.moduli[:L])
+    got = pallas_agg.weighted_sum_fused(
+        stacked, pallas_agg.weight_block(wr, ws, ctx.params.moduli[:L]))
     want = ops._weighted_sum_impl(ctx, stacked,
                                   torch.as_tensor(wr, device=dev),
                                   torch.as_tensor(ws, device=dev))
@@ -133,17 +163,25 @@ def test_weighted_sum_kernel_refuses_more_than_65536_clients(dev):
     x = torch.zeros((65537, 1, 2, 1, 4), dtype=torch.int32, device=dev)
     w = np.ones((65537, 1), dtype=np.int64)
     with pytest.raises(ValueError, match="1..65536"):
-        pallas_agg.weighted_sum_fused(x, w, w, (3,))
+        pallas_agg.weighted_sum_fused(x, pallas_agg.weight_block(w, w, (3,)))
 
 
 def test_decode_kernel_matches_plain_every_live(dev):
-    """Every live count from 1 to 16 (chain 16 at mult_depth 13)."""
+    """Every live count from 1 to 27 (chain 27 at mult_depth 24), on
+    uniform residues, the residues of -1 and y_l = q_l - 1 for every limb
+    (the largest k)."""
     ctx = P.make_context(P.make_params(batch=128, scale_bits=40,
-                                       mult_depth=13, ring_dim=256), dev)
-    assert ctx.params.chain_len == 16
+                                       mult_depth=24, ring_dim=256), dev)
+    assert ctx.params.chain_len == 27
     for live in range(1, ctx.params.chain_len + 1):
         dc = ctx.dec_consts[live - 1]
+        moduli = ctx.params.moduli[:live]
+        Q = math.prod(moduli)
         r = uniform_mod_q(_gen(dev, live), (3, live, 256), ctx.params.moduli)
+        r[1] = torch.tensor([q - 1 for q in moduli], dtype=torch.int32,
+                            device=dev)[:, None]
+        r[2] = torch.tensor([(q - 1) * (Q // q) % q for q in moduli],
+                            dtype=torch.int32, device=dev)[:, None]
         for scale in (2.0 ** 40, 2.0 ** 71, 2.0 ** -30):
             got = pallas_decode.decode_fused(ctx, dc, r, scale)
             want = encoding.decode_core(dc, ctx.q[:live], r, scale)
@@ -257,6 +295,64 @@ def test_main_path_small(dev):
     outs, _ = chip_smoke.drive("fedavg", lambda: chip_smoke.run_main_path(
         ctx, sk, pk, values, weights, _gen(dev)))
     assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR
+
+
+def test_deep_path_small(dev, tmp_path):
+    """chip_smoke's deep path (mult_depth 24: N 32768, 27 live limbs; K2,
+    K3, K4) with 20,000-value vectors (one chunk), its kernel records at
+    17 and 27 live limbs and K1's at 18 and 28 limbs."""
+    h = chip_smoke.deep_helper(tmp_path / "deep", dev)
+    assert h.ctx.params.chain_len == 27 and h.ctx.ring_dim == 32768
+    cnn, want = chip_smoke.api_vectors(20000, 10)
+    sds = chip_smoke.cnn_state_dicts()
+    outs, _ = chip_smoke.drive("deep", lambda: chip_smoke.run_deep_path(
+        h, cnn, sds))
+    errs = chip_smoke.result_errors(outs, {"cnn": want}, sds, dev, {})
+    assert max(errs.values()) <= chip_smoke.MAX_ERR
+    recs = chip_smoke.check_deep_kernels(h, cnn, _gen(dev), reps=1)
+    recs += chip_smoke.check_k1_deep(_gen(dev), 2, reps=1)
+    assert [(r["name"], r["shape"][-2]) for r in recs] == [
+        ("weighted_sum_fused", 17), ("decode_fused", 17),
+        ("weighted_sum_fused", 27), ("decode_fused", 27),
+        ("ntt_mxu_fused", 18), ("intt_mxu_fused", 18),
+        ("ntt_mxu_fused", 28), ("intt_mxu_fused", 28)]
+    assert [r["max_abs_err"] for r in recs] == [0.0] * 8
+
+
+@pytest.mark.parametrize("mult_depth", [14, 24])
+def test_deep_chain_round_on_card(dev, mult_depth):
+    """keygen, encrypt, weighted sum and decrypt at make_params(mult_depth
+    = 14 / 24): 17 / 27 live limbs at N = 32768, K2, K3 and K4 on the card;
+    the keys equal the CPU's."""
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=mult_depth)
+    assert params.chain_len == mult_depth + 3 and params.ring_dim == 32768
+    ctx = P.make_context(params, dev)
+    sk, pk = keys.keygen(ctx, 5)
+    csk, _ = keys.keygen(P.make_context(params, device="cpu"), 5)
+    assert torch.equal(sk.s.cpu(), csk.s)
+    vals, weights, want = chip_smoke.make_values(3, 20000, 1, 32768)
+    values = torch.as_tensor(vals, device=dev)
+    outs, _ = chip_smoke.drive("deep", lambda: chip_smoke.run_main_path(
+        ctx, sk, pk, values, weights, _gen(dev)))
+    assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR
+
+
+def test_ring65536_path_small(dev):
+    """chip_smoke's N = 65536 path with 20,000-value vectors: keygen (equal
+    to the CPU's), encrypt, weighted sum and decrypt on the card, and its
+    K2 records (the two-block body) at 2 chunks."""
+    ctx, values, weights, want = chip_smoke.ring65536_setup(dev, 20000)
+    outs, counts = chip_smoke.drive("ring65536", lambda: (
+        chip_smoke.run_ring65536_path(ctx, values, weights)))
+    assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR
+    cpu = P.make_context(ctx.params, device="cpu")
+    sk, pk = keys.keygen(ctx, 14)
+    csk, cpk = keys.keygen(cpu, 14)
+    assert torch.equal(sk.s.cpu(), csk.s) and torch.equal(pk.p0.cpu(),
+                                                          cpk.p0)
+    recs = chip_smoke.check_butterfly_65536(ctx, _gen(dev), 2, reps=1)
+    assert [r["shape"] for r in recs] == [[2, 4, 65536]] * 2
+    assert [r["max_abs_err"] for r in recs] == [0.0] * 2
 
 
 @pytest.mark.parametrize("seed", [0, 2024])
