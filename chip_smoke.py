@@ -92,7 +92,9 @@ Phases (each raises on failure, so the script exits non-zero):
      51 chunks of the CNN), keygen, then fedavg_round fused and staged
      and fhe_fedavg over the CNN state_dicts, within 1e-6 of the plaintext
      (K2, K3, K4); then K3 and K4 bit-exact at 27 live limbs on the path's
-     shapes and at 17 (mult_depth 14, N 32768), K1 at 18 and 28 limbs
+     shapes, K2 at its two batches there (the cohort encrypt's forward on
+     (3, 51, 27, 32768), the decrypt's inverse on (51, 27, 32768)), K3 and
+     K4 at 17 (mult_depth 14, N 32768), K1 at 18 and 28 limbs
      (ring_dim 16384, mult_depth 14 / 24) on 102 polynomials; rounds timed;
  12. the ring65536 path: make_params(batch 4096, 2^40, mult_depth 1,
      ring_dim 65536), the reference's one-device N = 65536 point, for the
@@ -508,6 +510,19 @@ def record_k4_encoded(recs, ctx, gen, chunks, reps) -> None:
         raise AssertionError(f"decode at live={live}: max_err {err}")
 
 
+def record_k2(recs, tb, shape, forward: bool, gen, reps) -> None:
+    """K2 on uniform residues of `shape` (..., L, N) under tables `tb`,
+    against its plain version; bytes: the residues in and out and the
+    (twiddle, Shoup) pairs of the direction."""
+    x = uniform_mod_q(gen, shape, tuple(int(q) for q in tb.q))
+    kern = pallas_ntt.ntt_fused if forward else pallas_ntt.intt_fused
+    plain = ntt_mod.ntt_butterfly if forward else ntt_mod.intt_butterfly
+    got = kern(x, tb)
+    _record(recs, kern.__name__, got, plain(x, tb), lambda: kern(x, tb),
+            lambda: plain(x, tb), reps,
+            (0, io_bytes(x, got, tb.tw_fwd if forward else tb.tw_inv)))
+
+
 def check_butterfly(rot_ctx, mult_ctx, gen, chunks, reps=10) -> list[dict]:
     """K2 against its plain version at the rotation path's shapes (the key
     switch's forward batch over the extended basis and the inverse over the
@@ -519,18 +534,12 @@ def check_butterfly(rot_ctx, mult_ctx, gen, chunks, reps=10) -> list[dict]:
     tb_ext = rot_ctx.tables.take(ext)
     tb_live = rot_ctx.tables.slice_limbs(0, chain)
     cases = (
-        ("ntt_fused", (1, chain, chain + 1, n), tb_ext, True),
-        ("intt_fused", (1, chain, n), tb_live, False),
-        ("ntt_fused", (chunks, chain, n), tb_live, True),
-        ("intt_fused", (chunks, chain, n), tb_live, False))
-    for name, shape, tb, fwd in cases:
-        x = uniform_mod_q(gen, shape, tuple(int(q) for q in tb.q))
-        kern = pallas_ntt.ntt_fused if fwd else pallas_ntt.intt_fused
-        plain = ntt_mod.ntt_butterfly if fwd else ntt_mod.intt_butterfly
-        got = kern(x, tb)
-        _record(recs, name, got, plain(x, tb),
-                lambda: kern(x, tb), lambda: plain(x, tb), reps,
-                (0, io_bytes(x, got, tb.tw_fwd if fwd else tb.tw_inv)))
+        ((1, chain, chain + 1, n), tb_ext, True),
+        ((1, chain, n), tb_live, False),
+        ((chunks, chain, n), tb_live, True),
+        ((chunks, chain, n), tb_live, False))
+    for shape, tb, fwd in cases:
+        record_k2(recs, tb, shape, fwd, gen, reps)
 
     # Two independent kernels for one transform: K2 equals K1 bit for bit.
     L = mult_ctx.params.chain_len
@@ -591,9 +600,10 @@ def run_deep_path(h: CKKS, cnn_vecs, state_dicts) -> dict:
 
 def check_deep_kernels(h: CKKS, cnn_vecs, gen, reps=10) -> list[dict]:
     """K3 and K4 at 27 live limbs on the deep path's shapes (the cohort
-    stack, the decrypt residues of an aggregated round) and at 17 live
-    limbs (make_params(mult_depth=14), N = 32768: uniform stack, encoded
-    values), each against its plain version."""
+    stack, the decrypt residues of an aggregated round), K2 at its two
+    (the cohort encrypt's forward batch, the decrypt's inverse), and K3
+    and K4 at 17 live limbs (make_params(mult_depth=14), N = 32768:
+    uniform stack, encoded values), each against its plain version."""
     recs = []
     ctx, sk = h.ctx, h._sk
     values = h.pack_cohort(cnn_vecs)
@@ -612,6 +622,13 @@ def check_deep_kernels(h: CKKS, cnn_vecs, gen, reps=10) -> list[dict]:
             record_k4(recs, ctx, ops.decrypt_residues(ctx, sk, agg),
                       agg.scale, reps)
             del agg
+            # K2 at the path's two batches: the cohort encrypt's forward
+            # (ops._sym_c0 on (clients, chunks, live, N)) and the
+            # decrypt's inverse (ops.decrypt_residues on (chunks, live, N)).
+            tb = ctx.tables.slice_limbs(0, L)
+            record_k2(recs, tb, (*values.shape[:2], L, ctx.ring_dim), True,
+                      gen, reps)
+            record_k2(recs, tb, (chunks, L, ctx.ring_dim), False, gen, reps)
         else:
             record_k4_encoded(recs, c, gen, chunks, reps)
         del c
@@ -642,16 +659,10 @@ def check_butterfly_65536(ctx, gen, chunks, reps=10) -> list[dict]:
     """K2 forward and inverse at (chunks, chain, 65536), the two-block body,
     against its plain version."""
     recs = []
-    tb = ctx.tables.slice_limbs(0, ctx.params.chain_len)
-    x = uniform_mod_q(gen, (chunks, ctx.params.chain_len, ctx.ring_dim),
-                      ctx.params.moduli)
+    L = ctx.params.chain_len
     for fwd in (True, False):
-        kern = pallas_ntt.ntt_fused if fwd else pallas_ntt.intt_fused
-        plain = ntt_mod.ntt_butterfly if fwd else ntt_mod.intt_butterfly
-        got = kern(x, tb)
-        _record(recs, kern.__name__, got, plain(x, tb),
-                lambda: kern(x, tb), lambda: plain(x, tb), reps,
-                (0, io_bytes(x, got, tb.tw_fwd if fwd else tb.tw_inv)))
+        record_k2(recs, ctx.tables.slice_limbs(0, L),
+                  (chunks, L, ctx.ring_dim), fwd, gen, reps)
     return recs
 
 

@@ -7,22 +7,21 @@ version. It takes every power-of-two ring from 256 to 65536: up to 32768
 a polynomial sits in one block's shared memory, at 65536 in two blocks of
 one half each (a two-block cluster for the inverse); a larger ring raises.
 CUDA tensors only: the dispatch in ntt/ntt.py sends CPU tensors to the
-plain version.
+plain version. Host work per call is the checks and the ctypes call: the
+launch constants are cached on the tables (NttTables.k2_consts, built
+on a table's first call, and their address k2_consts_ptr) and the
+kernel's shared-memory opt-in is made once per device.
 """
 
 from __future__ import annotations
 
-import ctypes
-
-import numpy as np
 import torch
 
 from .. import cuda_lib
-from .tables import NttTables
+from .tables import K2_MAX_LIMBS, NttTables
 
 MIN_RING = 256
 MAX_RING = 65536          # two blocks of 128 KB of int32 residues
-_MAX_LIMBS = 64
 
 
 def _call(x: torch.Tensor, tb: NttTables, forward: bool) -> torch.Tensor:
@@ -37,23 +36,20 @@ def _call(x: torch.Tensor, tb: NttTables, forward: bool) -> torch.Tensor:
                          f"the kernel keeps the whole polynomial in the "
                          f"shared memory of at most two blocks, which hold "
                          f"N={MAX_RING}")
-    if L > _MAX_LIMBS:
-        raise ValueError(f"{name}: L={L} > {_MAX_LIMBS} limbs")
+    if L > K2_MAX_LIMBS:
+        raise ValueError(f"{name}: L={L} > {K2_MAX_LIMBS} limbs")
     tw = tb.tw_fwd if forward else tb.tw_inv
     cuda_lib.require_cuda(tw, name, torch.int32)
     if tw.device != x.device:
         raise ValueError(f"{name}: tables on {tw.device}, input on "
                          f"{x.device}")
-    consts = np.zeros((3, _MAX_LIMBS), dtype=np.uint32)
-    for row, v in enumerate((tb.q, tb.ninv, tb.ninv_shoup)):
-        consts[row, :L] = v
     B = x.numel() // (L * n)
     out = torch.empty_like(x)
     if B == 0:
         return out
     err = cuda_lib.lib().fhe_ntt_butterfly(
         out.data_ptr(), x.data_ptr(), tw.data_ptr(),
-        consts.ctypes.data_as(ctypes.c_void_p), B, L, n, int(forward),
+        tb.k2_consts_ptr, B, L, n, int(forward),
         cuda_lib.stream_ptr(x))
     cuda_lib.check(err, name)
     cuda_lib.launches[name] += 1

@@ -27,6 +27,7 @@ has such a split (mxu.mxu_viable), else None.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from ..rns import modops
 from . import mxu as mxu_mod
 
 _HOST_FIELDS = ("q", "ninv", "ninv_shoup")
+K2_MAX_LIMBS = 64        # kMaxLimbs of csrc/ntt_butterfly.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +59,22 @@ class NttTables:
     def num_limbs(self) -> int:
         return int(self.q.shape[0])
 
+    @functools.cached_property
+    def k2_consts(self) -> np.ndarray:
+        """Kernel K2's launch constants, its C struct NttConsts: rows q,
+        N^-1 and N^-1's Shoup word, (3, K2_MAX_LIMBS) uint32, zero-padded.
+        Built on first use and kept (the tables are frozen; a slice is a
+        table of its own)."""
+        block = np.zeros((3, K2_MAX_LIMBS), dtype=np.uint32)
+        for row, v in enumerate((self.q, self.ninv, self.ninv_shoup)):
+            block[row, :v.shape[0]] = v
+        return block
+
+    @functools.cached_property
+    def k2_consts_ptr(self) -> int:
+        """The host address of k2_consts, which the table keeps alive."""
+        return self.k2_consts.ctypes.data
+
     def _map(self, host_fn, dev_fn, mxu_fn) -> "NttTables":
         kw = {}
         for f in dataclasses.fields(self):
@@ -71,10 +89,20 @@ class NttTables:
                 kw[f.name] = dev_fn(v)
         return dataclasses.replace(self, **kw)
 
+    def _derived(self, key, make) -> "NttTables":
+        """The table `make()` builds, made once per key and kept: the paths
+        ask for the same slices on every call, and a kept slice keeps its
+        k2_consts too."""
+        cache = self.__dict__.setdefault("_derived_tables", {})
+        if key not in cache:
+            cache[key] = make()
+        return cache[key]
+
     def slice_limbs(self, lo: int, hi: int) -> "NttTables":
         """Tables restricted to limbs [lo, hi)."""
-        return self._map(lambda a: a[lo:hi], lambda t: t[lo:hi],
-                         lambda m: m.slice_limbs(lo, hi))
+        return self._derived(("slice", lo, hi), lambda: self._map(
+            lambda a: a[lo:hi], lambda t: t[lo:hi],
+            lambda m: m.slice_limbs(lo, hi)))
 
     def take(self, idx) -> "NttTables":
         """Tables of the limbs `idx` in that order, e.g. the key switch's
@@ -82,9 +110,9 @@ class NttTables:
         _take_tables), four-step tables included."""
         idx = np.asarray(idx, dtype=np.int64)
         ti = torch.as_tensor(idx)
-        return self._map(lambda a: a[idx],
-                         lambda t: t.index_select(0, ti.to(t.device)),
-                         lambda m: m.take(idx))
+        return self._derived(("take", *idx.tolist()), lambda: self._map(
+            lambda a: a[idx], lambda t: t.index_select(0, ti.to(t.device)),
+            lambda m: m.take(idx)))
 
 
 def _pow_table(base: int, q: int, n: int) -> np.ndarray:

@@ -109,8 +109,15 @@ def test_ntt_on_deep_chain_tables(dev, mult_depth):
 
 @pytest.mark.parametrize("n,L,batch", [(256, 3, 5), (4096, 2, 3),
                                        (32768, 2, 2), (65536, 2, 3),
-                                       (65536, 5, 2)])
+                                       (65536, 5, 2), (512, 3, 3),
+                                       (256, 1, 1), (32768, 27, 2),
+                                       (8192, 3, 7), (2048, 5, 7)])
 def test_butterfly_kernel_matches_plain(dev, n, L, batch):
+    """Every group split of the stage-grouped body: N = 256 and 512 (the
+    shortest, 3 + 5 and 4 + 5 stages, blocks of 8 and 16 threads), 2048
+    (3 + 3 + 5), 32768 at 27 limbs (the deep chain), 65536 (two blocks),
+    and grids of B * L blocks that are no multiple of anything (7 x 3,
+    7 x 5)."""
     tb = tables.make_tables(n, primes.ntt_primes(n, L), device=dev)
     x = uniform_mod_q(_gen(dev, n), (batch, L, n), tuple(tb.q))
     y = pallas_ntt.ntt_fused(x, tb)
@@ -118,6 +125,40 @@ def test_butterfly_kernel_matches_plain(dev, n, L, batch):
     z = pallas_ntt.intt_fused(y, tb)
     assert torch.equal(z, ntt_mod.intt_butterfly(y, tb))
     assert torch.equal(z, x)
+
+
+@pytest.mark.parametrize("n", [256, 4096, 32768, 65536])
+def test_butterfly_kernel_at_the_largest_modulus(dev, n):
+    """The largest NTT prime below 2^31 for the ring (2^31 - q < 2^-13 of
+    2^31 at every N here), inputs including 0, 1 and q - 1 in every
+    position class: the unsigned-min reductions at their edges."""
+    q = primes.ntt_primes(n, 1)[0]
+    tb = tables.make_tables(n, (q,), device=dev)
+    x = uniform_mod_q(_gen(dev, 3), (4, 1, n), (q,))
+    x[1] = q - 1
+    x[2, 0, ::2] = 0
+    x[2, 0, 1::2] = q - 1
+    x[3, 0, : n // 2] = 1
+    for kern, plain in ((pallas_ntt.ntt_fused, ntt_mod.ntt_butterfly),
+                        (pallas_ntt.intt_fused, ntt_mod.intt_butterfly)):
+        assert torch.equal(kern(x, tb), plain(x, tb))
+
+
+def test_butterfly_wrapper_builds_constants_once(dev):
+    """The (3, 64) launch constants are built on a table's first call and
+    reused by every later call, either direction; the paths' repeated
+    slices are the same table, so they reuse them too."""
+    tb = tables.make_tables(4096, primes.ntt_primes(4096, 2), device=dev)
+    x = uniform_mod_q(_gen(dev, 4), (2, 2, 4096), tuple(tb.q))
+    assert "k2_consts" not in vars(tb)
+    pallas_ntt.ntt_fused(x, tb)
+    block = vars(tb)["k2_consts"]
+    pallas_ntt.ntt_fused(x, tb)
+    pallas_ntt.intt_fused(x, tb)
+    assert vars(tb)["k2_consts"] is block
+    part = tb.slice_limbs(0, 1)
+    pallas_ntt.ntt_fused(x[:, :1].contiguous(), part)
+    assert tb.slice_limbs(0, 1) is part and "k2_consts" in vars(part)
 
 
 def test_butterfly_kernel_matches_k1(dev):
@@ -314,9 +355,12 @@ def test_deep_path_small(dev, tmp_path):
     assert [(r["name"], r["shape"][-2]) for r in recs] == [
         ("weighted_sum_fused", 17), ("decode_fused", 17),
         ("weighted_sum_fused", 27), ("decode_fused", 27),
+        ("ntt_fused", 27), ("intt_fused", 27),
         ("ntt_mxu_fused", 18), ("intt_mxu_fused", 18),
         ("ntt_mxu_fused", 28), ("intt_mxu_fused", 28)]
-    assert [r["max_abs_err"] for r in recs] == [0.0] * 8
+    assert recs[4]["shape"] == [3, 1, 27, 32768]
+    assert recs[5]["shape"] == [1, 27, 32768]
+    assert [r["max_abs_err"] for r in recs] == [0.0] * 10
 
 
 @pytest.mark.parametrize("mult_depth", [14, 24])

@@ -284,10 +284,12 @@ def test_k4_constant_block_layout(deep_tctx):
 # -- K2: the two-half split at N = 65536, rehearsed --------------------------
 
 def _k2_halves(x, tb, forward):
-    """K2's two-block body on the CPU: H = 2 blocks per polynomial, block h
-    holding residues [h N/2, (h+1) N/2), with the kernel's j -> (i0, i1)
-    map and twiddle index m + h*m/2 + j/t; the cross-half stage as the
-    kernel runs it (forward: on load; inverse: from the partner's half)."""
+    """K2's two-block split on the CPU: H = 2 blocks per polynomial, block
+    h holding residues [h N/2, (h+1) N/2), each in-half stage a butterfly
+    j -> (i0, i1) under twiddle index m + h*m/2 + j/t; the cross-half stage
+    as the kernel runs it (forward: on load; inverse: from the partner's
+    half). The kernel's stage groups within a half are rehearsed in
+    tests/test_torch_k2.py."""
     n = tb.ring_dim
     nl, log_n = n // 2, n.bit_length() - 1
     q = int(tb.q[0])
