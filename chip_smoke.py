@@ -101,6 +101,19 @@ Phases (each raises on failure, so the script exits non-zero):
      CNN's 3 x 1,663,370 values in 26 chunks: keygen -> public-key encrypt
      -> weighted sum -> decrypt within 1e-6 (K2's two-block body, K3, K4);
      K2 forward and inverse bit-exact at (26, 4, 65536); the round timed.
+ 13. the zoo path: fhe_fed_tpu_torch.benchmarks.model_bench.main over all 15
+     zoo models at their published widths (linear .. bert, 316.6 M
+     parameters; built on the card from seed 0), model_bench's default
+     point (3 clients, batch 4096, 2^52, N 8192, secret key, 4,096 values
+     a chunk), models above 512 chunks streamed in slices of 512, each
+     phase after a warm-up; then --fused and --scheme ckks-threshold over
+     cnn_fedavg and resnet50, and selective_bench at rates 0.1 and 1.0 on
+     resnet50 and bert. Every round within 1e-6 of the plaintext mean, and
+     every model's forward on the card (at zoo.example_inputs) with the
+     decrypted average within 1e-3 of max(1, |y|) of the forward with the
+     plaintext average; then K1, K3 and K4 bit-exact at the slice's shapes
+     ((1536, 4, 8192), (3, 512, 2, 4, 8192), (512, 4, 8192)). Results go to
+     build/zoo/.
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
@@ -135,8 +148,11 @@ from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
 from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
 from fhe_fed_tpu_torch.ckks import threshold as thr
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
+from fhe_fed_tpu_torch.benchmarks import model_bench, selective_bench
 from fhe_fed_tpu_torch.fed import masking as M
+from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
+from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.native import paillier
 from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.utils import threefry
@@ -191,6 +207,8 @@ PATH_KERNELS = {   # the kernels each driven path must launch
     "deep": ("ntt_fused", "intt_fused", "weighted_sum_fused", "decode_fused"),
     "ring65536": ("ntt_fused", "intt_fused", "weighted_sum_fused",
                   "decode_fused"),
+    "zoo": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+            "decode_fused"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -206,6 +224,19 @@ MASK_GEOMETRY = dict(modulus_bits=2048, num_bits=17, precision_bits=13)
 # limbs at N = 32768 (18 and 28 moduli at ring_dim 16384 for K1).
 DEEP_DEPTHS = (14, 24)
 RING_65536 = dict(batch=4096, scale_bits=40, mult_depth=1, ring_dim=65536)
+# The zoo path: model_bench's default point (batch 4096 values a chunk, not
+# dense), streamed in slices of 512 chunks; the fused and threshold runs and
+# selective_bench on these models.
+ZOO_BATCH = 4096          # model_bench's --batch: values a chunk
+ZOO_MAX_CHUNKS = 512
+ZOO_SIDE_MODELS = ("cnn_fedavg", "resnet50")
+ZOO_SELECTIVE_MODELS = ("resnet50", "bert")
+ZOO_SELECTIVE_RATES = ("0.1", "1.0")
+# The forward on the decrypted average against the forward on the plaintext
+# average, max |dy| / max(1, max |y|) over the outputs: with every weight
+# moved by up to the 1e-6 gate at random, the zoo's worst is 1.8e-4 (ViT,
+# CPU, seed 0), and the rounds' errors are ~30x below the gate.
+ZOO_FWD_REL = 1e-3
 
 
 def card() -> str:
@@ -1451,6 +1482,129 @@ def ring65536_path(dev, gpu: str, gen) -> tuple[collections.Counter,
     return counts, recs
 
 
+def load_flat(spec, flat: np.ndarray, dev):
+    """The tree of spec.params with its leaves taken in order from the flat
+    vector `flat`, on `dev`."""
+    off = 0
+
+    def leaf(x):
+        nonlocal off
+        t = torch.from_numpy(flat[off:off + x.numel()]).reshape(x.shape)
+        off += x.numel()
+        return t.to(dev)
+    return tree_map(leaf, spec.params)
+
+
+def forward_rel(spec, avg: np.ndarray, want: np.ndarray, dev) -> float:
+    """The model on the decrypted average against the model on the
+    plaintext average, on `dev` at zoo.example_inputs: the largest output
+    difference over max(1, the largest output). Raises on a non-finite or
+    misshapen output."""
+    inputs = [torch.as_tensor(x, device=dev)
+              for x in zoo.example_inputs(spec.name)]
+    got = tree_leaves(spec.forward(*inputs, params=load_flat(spec, avg, dev)))
+    ref = tree_leaves(spec.forward(*inputs,
+                                   params=load_flat(spec, want, dev)))
+    rel = 0.0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{spec.name}: bad forward output "
+                                 f"{tuple(g.shape)}")
+        rel = max(rel, float((g - r).abs().max())
+                  / max(1.0, float(r.abs().max())))
+    return rel
+
+
+def zoo_checker(dev, gpu: str, rows: list):
+    """model_bench.main's on_model: the max_err gate and the forward check
+    on the card, one line per model; the rows collect what was checked."""
+    def check(r, spec, avg, want):
+        if not r["max_err"] <= MAX_ERR:
+            raise AssertionError(f"zoo {r['model']} ({r['path']}, "
+                                 f"{r['scheme']}): max_err {r['max_err']}")
+        fwd = forward_rel(spec, avg, want, dev)
+        if not fwd <= ZOO_FWD_REL:
+            raise AssertionError(f"zoo {r['model']}: forward differs by "
+                                 f"{fwd} > {ZOO_FWD_REL}")
+        chunks = -(-r["params"] // ZOO_BATCH)
+        ms = {k: round(v * 1e3, 4) for k, v in r["phases"].items()}
+        print(f"zoo {r['model']} [{r['scheme']} {r['path']}]: params "
+              f"{r['params']} chunks {chunks} phases_ms {json.dumps(ms)} "
+              f"max_err {r['max_err']!r} forward_rel {fwd:.3e} (bound "
+              f"{ZOO_FWD_REL}) ({gpu})", flush=True)
+        rows.append(dict(model=r["model"], path=r["path"],
+                         scheme=r["scheme"], max_err=r["max_err"],
+                         forward_rel=fwd))
+    return check
+
+
+def run_zoo_path(dev, gpu: str, out: pathlib.Path) -> dict:
+    """model_bench over every zoo model at full width (3 clients, secret
+    key, slices of 512 chunks), the fused and the threshold runs over
+    cnn_fedavg and resnet50, and selective_bench at rates 0.1 and 1.0 on
+    resnet50 and bert; every model's forward checked on the card."""
+    rows: list = []
+    check = zoo_checker(dev, gpu, rows)
+    point = ["--batch", str(ZOO_BATCH), "--max-chunks", str(ZOO_MAX_CHUNKS),
+             "--device", str(dev), "--out", str(out)]
+    model_bench.main(["--models", *zoo.MODEL_NAMES, "--warmup", *point],
+                     on_model=check)
+    model_bench.main(["--models", *ZOO_SIDE_MODELS, "--fused", *point],
+                     on_model=check)
+    model_bench.main(["--models", *ZOO_SIDE_MODELS, "--scheme",
+                      "ckks-threshold", *point], on_model=check)
+    sel = selective_bench.main(["--models", *ZOO_SELECTIVE_MODELS,
+                                "--rates", *ZOO_SELECTIVE_RATES,
+                                "--reps", "1", *point])
+    return {"rows": rows, "selective": sel}
+
+
+def check_zoo(outs: dict) -> None:
+    """Every zoo model ran once on the cohort path, the side models fused
+    and under the threshold scheme, the selective rows within MAX_ERR."""
+    runs = collections.Counter((r["path"], r["scheme"])
+                               for r in outs["rows"])
+    want = {("cohort", "ckks"): len(zoo.MODEL_NAMES),
+            ("fused", "ckks"): len(ZOO_SIDE_MODELS),
+            ("cohort", "ckks-threshold"): len(ZOO_SIDE_MODELS)}
+    if dict(runs) != want:
+        raise AssertionError(f"zoo runs {dict(runs)}, want {want}")
+    sel = outs["selective"]
+    if len(sel) != len(ZOO_SELECTIVE_MODELS) * len(ZOO_SELECTIVE_RATES):
+        raise AssertionError(f"selective rows {len(sel)}")
+    for r in sel:
+        if not r["max_err"] <= MAX_ERR:
+            raise AssertionError(f"selective {r['model']} rate {r['rate']}: "
+                                 f"max_err {r['max_err']}")
+
+
+def zoo_path(dev, gpu: str, ctx, sk, gen) -> tuple[collections.Counter,
+                                                    list[dict]]:
+    """The zoo path under drive() and its checks, then K1, K3 and K4 held
+    at the streamed slice's shapes (512 chunks). Returns the path's launch
+    counts and the kernel records."""
+    t0 = time.perf_counter()
+    outs, counts = drive("zoo", lambda: run_zoo_path(
+        dev, gpu, ROOT / "build" / "zoo"))
+    check_zoo(outs)
+    for r in outs["selective"]:
+        print(f"zoo selective {r['model']} rate {r['rate']}: enc_params "
+              f"{r['enc_params']} chunks {r['chunks']} round_ms "
+              f"{r['round_s'] * 1e3:.4f} max_err {r['max_err']!r} ({gpu})",
+              flush=True)
+    print(f"zoo path: {len(outs['rows'])} model runs, "
+          f"{sum(zoo.build(m, device='meta').count for m in zoo.MODEL_NAMES)}"
+          f" parameters in the ladder, wall_s "
+          f"{time.perf_counter() - t0:.3f} launches {counts}", flush=True)
+    n = ctx.params.ring_dim
+    vals, weights, _ = make_values(N_CLIENTS, ZOO_MAX_CHUNKS * ZOO_BATCH,
+                                   ZOO_MAX_CHUNKS, n, seed=15)
+    recs = check_kernels(ctx, sk, torch.as_tensor(vals, device=dev), weights,
+                         gen)
+    print_records(recs, gpu)
+    return counts, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=pathlib.Path, default=None,
@@ -1462,8 +1616,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # The plain NTT's f32 digit-plane matmul is exact only in full f32.
+    # The plain NTT's f32 digit-plane matmul is exact only in full f32; the
+    # zoo's forwards run their convolutions in full f32 too.
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda:0")
     gpu = card()
@@ -1670,10 +1826,12 @@ def main() -> int:
     recs += deep_recs
     ring_counts, ring_recs = ring65536_path(dev, gpu, gen)
     recs += ring_recs
+    zoo_counts, zoo_recs = zoo_path(dev, gpu, ctx, sk, gen)
+    recs += zoo_recs
 
     launches = collections.Counter()
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
-              mask_counts, deep_counts, ring_counts):
+              mask_counts, deep_counts, ring_counts, zoo_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

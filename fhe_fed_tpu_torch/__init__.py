@@ -12,8 +12,11 @@ of jax.random (utils/threefry.py), so a seed gives the JAX package's bytes.
 The two other secure-aggregation schemes: threshold CKKS (`ThresholdCKKS`,
 ckks/threshold.py; no party holds the joint secret key) and the Paillier
 masking scheme (`Masking`, fed/masking.py; its offline Paillier runs on the
-host in native/paillier.py). One model: CNN_OriginalFedAvg
-(models/basic.py). Module paths mirror the JAX package's. Residues are
+host in native/paillier.py). The model zoo (models/: the JAX package's 15
+models over its parameter trees, built from the same threefry keys), the
+synthetic data (data/synth.py) and the per-model drivers
+(benchmarks/model_bench.py, benchmarks/selective_bench.py). Module paths
+mirror the JAX package's. Residues are
 stored as non-negative int32 (every modulus is below 2**31); Shoup
 companion words are int64 (rns/modops.py).
 

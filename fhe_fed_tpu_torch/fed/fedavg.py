@@ -83,6 +83,20 @@ def _unflatten(struct, it):
     return rebuild([_unflatten(s, it) for s in subs])
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested containers, in flatten_params' order."""
+    leaves: list = []
+    _flatten(tree, leaves)
+    return leaves
+
+
+def tree_map(fn, tree):
+    """The same containers with fn applied to every leaf."""
+    leaves: list = []
+    struct = _flatten(tree, leaves)
+    return _unflatten(struct, iter([fn(x) for x in leaves]))
+
+
 def _numpy(x) -> np.ndarray:
     if torch.is_tensor(x):
         return x.detach().cpu().numpy()

@@ -20,6 +20,9 @@ from .ckks.keys import SecretKey, PublicKey
 from .ckks.ops import Ciphertext, SeededCiphertext
 from .ckks.keyswitch import KSwitchKey
 from .ckks.threshold import PartySecrets
+from .fed.fedavg import tree_map
+from .models import zoo
+from .models.zoo import ModelSpec
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
@@ -93,6 +96,27 @@ def cnn_fedavg_state_dict_from_numpy(params) -> collections.OrderedDict:
     sd["fc2.weight"] = t(np.asarray(params["fc2"]["w"]).T)
     sd["fc2.bias"] = t(params["fc2"]["b"])
     return sd
+
+
+def zoo_model_from_numpy(name: str, params, state=None,
+                         device="cuda") -> ModelSpec:
+    """A JAX zoo model's (params, state), nested dicts and lists of numpy
+    arrays, -> the port's model (models.zoo.ModelSpec) on `device`.
+
+    The port keeps the JAX package's trees and layouts (models/layers.py),
+    so every leaf carries over as it is: dense weights stay (in, out),
+    convolution kernels HWIO, LSTM gate blocks (in, 4 * hidden) in the
+    order i, f, g, o, and dense layers after a convolution keep reading
+    the NHWC flatten. Nothing is permuted here, unlike for the torch
+    module CNNOriginalFedAvg (cnn_fedavg_state_dict_from_numpy)."""
+    device = cuda_lib.device(device)
+
+    def leaf(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    return zoo.spec_from_tree(
+        name, tree_map(leaf, params),
+        None if state is None else tree_map(leaf, state))
 
 
 def kswitch_key_from_numpy(b, b_shoup, a, a_shoup,

@@ -18,6 +18,9 @@ storage-only dtype on the CPU).
   * split(k, num)[i] = threefry2x32(k, counter i), both output words;
   * bits(k, shape) = out0 ^ out1 of the counters of `shape`;
   * fold_in(k, d) = threefry2x32(k, (0, d)).
+
+On those words, `uniform` is jax.random.uniform bit for bit and `normal`
+jax.random.normal within 4 ulp (see `_erfinv`).
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ def _hash_counters(key: torch.Tensor, shape):
     (*key.shape[:-1], *shape) each."""
     shape = tuple(shape)
     k0, k1 = _words(key)
+    if key.is_meta:     # shapes only: nothing to hash
+        out = torch.empty(k0.shape + shape, dtype=_I64, device=key.device)
+        return out, out.clone()
     expand = (...,) + (None,) * len(shape)
     c_hi, c_lo = _counters(shape, key.device)
     return threefry2x32(k0[expand], k1[expand], c_hi, c_lo)
@@ -116,3 +122,53 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     values in [0, 2**32), shape (*key.shape[:-1], *shape)."""
     y0, y1 = _hash_counters(key, shape)
     return y0.bitwise_xor_(y1)
+
+
+def uniform(key: torch.Tensor, shape, minval: float, maxval: float
+            ) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32, minval, maxval), bit for bit.
+
+    The 23 mantissa bits of each word make f in [0, 1); JAX returns
+    max(lo, f * (hi - lo) + lo) in float32, and XLA fuses that multiply-add
+    into one rounding. Here the product is exact in float64 and so is the
+    sum (at most 47 significant bits), so rounding it once to float32 gives
+    the fused result."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(hi - lo)                       # float32 subtraction, as JAX
+    words = bits(key, shape)
+    f = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min((f.double() * span + float(lo)).float(), float(lo))
+
+
+# XLA's float32 ErfInv (Giles, "Approximating the erfinv function", 2010):
+# a degree-8 polynomial in w - 2.5 for w = -log1p(-x^2) < 5, else in
+# sqrt(w) - 3.
+_ERFINV_SMALL = tuple(float(np.float32(c)) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_LARGE = tuple(float(np.float32(c)) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erf_inv on x in (-1, 1). Each Horner step rounds once
+    (XLA emits fused multiply-adds); log1p is torch's, which differs from
+    XLA's by an ulp now and then, so the result is within a few ulp of
+    JAX's rather than equal to it (tests/test_torch_models.py)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0])
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        p = (torch.where(small, a, b).double() + p.double() * w).float()
+    return p * x
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """jax.random.normal(key, shape, float32): sqrt(2) erf_inv(u) with u
+    uniform on (-1, 1), u bit for bit and the result within a few ulp."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    return _SQRT2 * _erfinv(uniform(key, shape, float(lo), 1.0))

@@ -575,3 +575,79 @@ def test_masking_path_small(dev, tmp_path):
         chip_smoke.run_masking_path(hs, off, on)))
     errs = chip_smoke.check_masking(outs, off, on, hs)
     assert max(errs[k] for k in outs) <= errs["bound"]
+
+
+def _leaf_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.cpu().view(torch.int32).long()
+                - b.cpu().view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.parametrize("name", ["cnn_fedavg", "mobilenet", "rnn_lstm",
+                                  "tst", "tabnet", "gcn"])
+def test_zoo_build_on_card_equals_cpu(dev, name):
+    """build(name, seed) on the card draws the CPU's parameters: uniform
+    leaves bit for bit (the affine step in float64 is exact on both), the
+    normal leaves within 4 ulp (log1p may round otherwise on the card);
+    the BatchNorm state equal."""
+    from fhe_fed_tpu_torch.fed.fedavg import tree_leaves
+    from fhe_fed_tpu_torch.models import zoo
+    card = zoo.build(name, seed=5, device=dev)
+    cpu = zoo.build(name, seed=5, device="cpu")
+    normal = {"rnn_lstm": 1, "tst": 3, "tabnet": 10}.get(name, 0)
+    differ = 0
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert a.device == dev and a.shape == b.shape
+        u = _leaf_ulps(a, b)
+        assert u <= 4
+        differ += u > 0
+    assert differ <= normal
+    if cpu.state is not None:
+        for a, b in zip(tree_leaves(card.state), tree_leaves(cpu.state)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name", ["lenet", "resnet18", "bert", "groupvit",
+                                  "tabnet"])
+def test_zoo_forward_on_card_matches_cpu(dev, name):
+    """The same weights and inputs forward on the card as on the CPU
+    (TF32 off), within the CPU test's 2e-5 of max(1, |y|)."""
+    from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
+    from fhe_fed_tpu_torch.models import zoo
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = zoo.build(name, seed=1, device="cpu")
+    card = zoo.spec_from_tree(
+        name, tree_map(lambda t: t.to(dev), cpu.params),
+        None if cpu.state is None else tree_map(lambda t: t.to(dev),
+                                                cpu.state))
+    inputs = zoo.example_inputs(name)
+    want = tree_leaves(cpu.forward(*[torch.as_tensor(x) for x in inputs]))
+    got = tree_leaves(card.forward(*[torch.as_tensor(x, device=dev)
+                                     for x in inputs]))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("name,kw", [("mlp", dict(max_chunks=8)),
+                                     ("cnn_fedavg", dict()),
+                                     ("cnn_fedavg", dict(use_fused=True)),
+                                     ("cnn_fedavg", dict(use_bytes=True))])
+def test_model_bench_on_card(dev, tmp_path, name, kw):
+    """bench_model on the card: mlp streamed over slices of 8 chunks (K1,
+    K3, K4 on each) and cnn_fedavg (407 chunks) on each path, within 1e-6
+    of the plaintext mean, sized as on the CPU."""
+    from fhe_fed_tpu_torch.benchmarks import model_bench as MB
+    h = CKKS("ckks", 4096, 52, cryptodir=str(tmp_path), symmetric=True,
+             seed=3, device=dev)
+    h.genCryptoContextAndKeyGen()
+    cuda_lib.launches.clear()
+    r = MB.bench_model(name, 3, h, **kw)
+    assert r["max_err"] <= 1e-6
+    assert r["backend"] != "cuda" and "W" in r["backend"]
+    chunks = -(-r["params"] // 4096)
+    header = 64 if kw.get("use_fused") else S.CT_HEADER_BYTES
+    if "max_chunks" not in kw:
+        assert r["ct_bytes"] == 3 * (chunks * 2 * 4 * 8192 * 4 + header)
+    for k in ("ntt_mxu_fused", "weighted_sum_fused", "decode_fused"):
+        assert cuda_lib.launches[k] > 0, k
