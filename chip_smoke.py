@@ -114,6 +114,33 @@ Phases (each raises on failure, so the script exits non-zero):
      plaintext average; then K1, K3 and K4 bit-exact at the slice's shapes
      ((1536, 4, 8192), (3, 512, 2, 4, 8192), (512, 4, 8192)). Results go to
      build/zoo/.
+ 14. the train_sweep path: fhe_fed_tpu_torch.benchmarks.train_synth trains
+     cnn_fedavg on the card (600 Adam steps on the synthetic images, the
+     cache removed first), then param_sweep's grid ({1024, 2048, 4096} x
+     {14, 20, 33, 40, 52} scale bits: 1625 / 813 / 407 chunks x 3 clients,
+     3 or 4 live limbs, public-key encrypt) and its ckks-threshold point
+     on the trained model; it fails unless acc_delta is 0 at 33 bits and
+     above (the reference's criterion) and max_err <= 1e-6 at 52 bits;
+     then the committed results/trained_cnn_fedavg.npz predicts on the
+     card and on the CPU, argmaxes equal on >= 99.9% of the test set; then
+     K1, K3 and K4 bit-exact at the sweep's 3-limb shape (batch 1024,
+     2^20: (4875, 3, 8192), (3, 1625, 2, 3, 8192), (1625, 3, 8192)).
+     Results go to build/train_sweep/;
+ 15. the attack path: attack_eval on LeNet (the zoo's, seed 0; one
+     (1, 32, 32, 3) image of 100 classes), the layer sweep (7 sets) and
+     the --topk sweep (7 fractions, cut to 1 restart of attack_eval's
+     default 3 and 200 steps to keep the run's time), L-BFGS, 400 steps; it
+     fails unless `none` reaches corr > 0.9 and `protect_all` |corr| <
+     0.5. No kernel of ours runs: the path checks instead that
+     model_gradients and gradient_sensitivity on the card, called with
+     TF32 on for cuBLAS and cuDNN, give the CPU's within 1e-5 of each
+     leaf's largest element and leave the caller's settings as they were;
+     then whether two 50-step runs give equal losses (recorded);
+ 16. the drivers path: fedavg_demo in both schemes (max_err < 1e-4),
+     mkhe_bench at its defaults (100,000 values, 3 parties; max_err <=
+     1e-6) and masking_bench at 8,500 values (4 learners, 2048-bit
+     Paillier: the offline phase cut from the model's 1,663,370 values as
+     in phase 10).
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
@@ -132,6 +159,7 @@ import itertools
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -148,7 +176,12 @@ from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
 from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
 from fhe_fed_tpu_torch.ckks import threshold as thr
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
+from fhe_fed_tpu_torch import attack
 from fhe_fed_tpu_torch.benchmarks import model_bench, selective_bench
+from fhe_fed_tpu_torch.benchmarks import attack_eval, fedavg_demo
+from fhe_fed_tpu_torch.benchmarks import mkhe_bench, masking_bench
+from fhe_fed_tpu_torch.benchmarks import param_sweep, train_synth
+from fhe_fed_tpu_torch.data.synth import make_synth_images
 from fhe_fed_tpu_torch.fed import masking as M
 from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
@@ -209,6 +242,13 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                   "decode_fused"),
     "zoo": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
             "decode_fused"),
+    "train_sweep": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+                    "decode_fused"),
+    # Autograd through the zoo's LeNet: cuDNN and cuBLAS, no kernel of
+    # ours; the path checks that its gradients live on the card instead.
+    "attack": (),
+    "drivers": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+                "decode_fused"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -237,6 +277,26 @@ ZOO_SELECTIVE_RATES = ("0.1", "1.0")
 # moved by up to the 1e-6 gate at random, the zoo's worst is 1.8e-4 (ViT,
 # CPU, seed 0), and the rounds' errors are ~30x below the gate.
 ZOO_FWD_REL = 1e-3
+# The train_sweep path: train_synth's model, the sweep's gates (the
+# reference's criterion, acc_delta 0 from 33 scale bits on,
+# results/params_results.csv; the FedAvg max_err gate at 52 bits) and the
+# card's argmax on the committed trained CNN against the CPU's.
+TRAIN_MODEL = "cnn_fedavg"
+SWEEP_EXACT_BITS = 33
+TRAIN_AGREE = 0.999
+# The attack path: attack_eval on LeNet, both sweeps. Unprotected, DLG
+# recovers the image; protecting every layer leaves nothing to match.
+ATTACK_CORR_NONE = 0.9
+ATTACK_CORR_ALL = 0.5
+# Cuts of the --topk sweep (its rows are recorded, not gated): one seed per
+# fraction, not attack_eval's default 3, and 200 L-BFGS steps, not 400.
+# 400 steps of LeNet take 6-12 s on an H100 80GB HBM3 at 700 W,
+# launch-bound: the 21-run sweep alone took 157.5 s there, and 85.9 s at
+# one seed.
+ATTACK_RESTARTS = 1
+ATTACK_TOPK_STEPS = 200
+ATTACK_GRAD_REL = 1e-5    # card vs CPU gradients, max |d| / max |g| per leaf
+ATTACK_DETERMINISM_STEPS = 50
 
 
 def card() -> str:
@@ -1003,12 +1063,7 @@ def mkhe_setup(dev, n_values: int, seed=1):
                                        mult_depth=2), dev)
     v = np.random.default_rng(seed).standard_normal(n_values).astype(
         np.float32)
-    chunks = -(-n_values // 4096)
-    pay = np.zeros(chunks * 4096, dtype=np.float32)
-    pay[:n_values] = v
-    buf = np.zeros((chunks, ctx.ring_dim), dtype=np.float32)
-    buf[:, :4096] = pay.reshape(chunks, 4096)
-    return ctx, v, torch.as_tensor(buf, device=dev)
+    return ctx, v, mkhe_bench.chunk(v, 4096, ctx.ring_dim, dev)
 
 
 def run_threshold_path(h: ThresholdCKKS, cnn_vecs, mctx, mvals) -> dict:
@@ -1482,19 +1537,6 @@ def ring65536_path(dev, gpu: str, gen) -> tuple[collections.Counter,
     return counts, recs
 
 
-def load_flat(spec, flat: np.ndarray, dev):
-    """The tree of spec.params with its leaves taken in order from the flat
-    vector `flat`, on `dev`."""
-    off = 0
-
-    def leaf(x):
-        nonlocal off
-        t = torch.from_numpy(flat[off:off + x.numel()]).reshape(x.shape)
-        off += x.numel()
-        return t.to(dev)
-    return tree_map(leaf, spec.params)
-
-
 def forward_rel(spec, avg: np.ndarray, want: np.ndarray, dev) -> float:
     """The model on the decrypted average against the model on the
     plaintext average, on `dev` at zoo.example_inputs: the largest output
@@ -1502,9 +1544,10 @@ def forward_rel(spec, avg: np.ndarray, want: np.ndarray, dev) -> float:
     misshapen output."""
     inputs = [torch.as_tensor(x, device=dev)
               for x in zoo.example_inputs(spec.name)]
-    got = tree_leaves(spec.forward(*inputs, params=load_flat(spec, avg, dev)))
-    ref = tree_leaves(spec.forward(*inputs,
-                                   params=load_flat(spec, want, dev)))
+    got = tree_leaves(spec.forward(*inputs, params=train_synth.
+                                   params_from_flat(spec.params, avg, dev)))
+    ref = tree_leaves(spec.forward(*inputs, params=train_synth.
+                                   params_from_flat(spec.params, want, dev)))
     rel = 0.0
     for g, r in zip(got, ref):
         if g.shape != r.shape or not bool(torch.isfinite(g).all()):
@@ -1603,6 +1646,253 @@ def zoo_path(dev, gpu: str, ctx, sk, gen) -> tuple[collections.Counter,
                          gen)
     print_records(recs, gpu)
     return counts, recs
+
+
+def check_committed_model(dev, gpu: str) -> dict:
+    """The card's predictions with the committed trained CNN
+    (results/trained_cnn_fedavg.npz) on the synthetic test set against the
+    CPU's: the share of equal argmaxes must reach TRAIN_AGREE."""
+    with np.load(ROOT / "results" / f"trained_{TRAIN_MODEL}.npz") as z:
+        flat = z["flat"]
+    spec = zoo.build(TRAIN_MODEL, device="cpu")
+    x, y = make_synth_images(train_synth.TEST_N, seed=99)
+    preds = {}
+    for d in (dev, torch.device("cpu")):
+        preds[d.type] = train_synth.predict(spec.apply, train_synth.
+                                            params_from_flat(spec.params,
+                                                             flat, d), x)
+    agree = float(np.mean(preds["cuda"] == preds["cpu"]))
+    accs = {k: float(np.mean(p == y)) for k, p in preds.items()}
+    print(f"train_sweep committed {TRAIN_MODEL}: accuracy card "
+          f"{accs['cuda']!r} cpu {accs['cpu']!r} argmax agreement "
+          f"{agree!r} (bound {TRAIN_AGREE}) ({gpu})", flush=True)
+    if not agree >= TRAIN_AGREE:
+        raise AssertionError(f"committed {TRAIN_MODEL}: the card agrees with "
+                             f"the CPU on {agree} of the argmaxes")
+    return dict(agree=agree, **accs)
+
+
+def run_train_sweep_path(dev, gpu: str, out: pathlib.Path) -> dict:
+    """train_synth's 600 steps on TRAIN_MODEL (the cache removed first, so
+    it trains), then param_sweep's grid (15 points) and its threshold
+    point on the trained model, results in `out`."""
+    if out.exists():
+        shutil.rmtree(out)
+    t0 = time.perf_counter()
+    _, _, acc = train_synth.trained_model(TRAIN_MODEL, out=out, device=dev)
+    train_s = time.perf_counter() - t0
+    print(f"train_synth {TRAIN_MODEL}: 600 Adam steps, test accuracy "
+          f"{acc!r} train_s {train_s:.3f} ({gpu})", flush=True)
+    point = ["--model", TRAIN_MODEL, "--device", str(dev), "--out", str(out)]
+    t0 = time.perf_counter()
+    rows = param_sweep.main(point)
+    rows += param_sweep.main(["--scheme", "ckks-threshold", *point])
+    return dict(acc=acc, train_s=train_s, rows=rows,
+                sweep_s=time.perf_counter() - t0)
+
+
+def check_train_sweep(outs: dict) -> None:
+    """Every grid point and the threshold point ran; acc_delta is 0 at
+    SWEEP_EXACT_BITS and above, max_err within MAX_ERR at 52 bits."""
+    got = sorted((r["scheme"], r["batch"], r["scale_bits"])
+                 for r in outs["rows"])
+    want = sorted([("ckks", b, s) for b in param_sweep.GRID_BATCHES
+                   for s in param_sweep.GRID_BITS]
+                  + [("ckks-threshold", 4096, 52)])
+    if got != want:
+        raise AssertionError(f"sweep points {got}, want {want}")
+    for r in outs["rows"]:
+        tag = f"sweep {r['scheme']} {r['batch']}/{r['scale_bits']}"
+        if r["scale_bits"] >= SWEEP_EXACT_BITS and r["acc_delta"] != 0:
+            raise AssertionError(f"{tag}: acc_delta {r['acc_delta']}")
+        if r["scale_bits"] == 52 and not r["max_err"] <= MAX_ERR:
+            raise AssertionError(f"{tag}: max_err {r['max_err']}")
+
+
+def train_sweep_path(dev, gpu: str, gen) -> tuple[collections.Counter,
+                                                   list[dict]]:
+    """The train_sweep path under drive() and its checks, the committed
+    model's check, then K1, K3 and K4 held at the sweep's 3-limb shape
+    (batch 1024, 2^20: 1625 chunks x 3 clients, 3 live limbs). Returns the
+    path's launch counts and the kernel records."""
+    t0 = time.perf_counter()
+    outs, counts = drive("train_sweep", lambda: run_train_sweep_path(
+        dev, gpu, ROOT / "build" / "train_sweep"))
+    check_train_sweep(outs)
+    peak = max(r["peak_mem_bytes"] for r in outs["rows"])
+    print(f"train_sweep path: {len(outs['rows'])} sweep points, train_s "
+          f"{outs['train_s']:.3f} sweep_s {outs['sweep_s']:.3f} "
+          f"peak_mem_bytes {peak} wall_s {time.perf_counter() - t0:.3f} "
+          f"launches {counts} ({gpu})", flush=True)
+    check_committed_model(dev, gpu)
+    ctx = P.make_context(P.make_params(batch=1024, scale_bits=20), dev)
+    sk, _ = keys.keygen(ctx, 0)
+    chunks = -(-CNN_PARAMS // 1024)
+    n = ctx.ring_dim
+    vals, weights, _ = make_values(N_CLIENTS, chunks * n, chunks, n, seed=16)
+    recs = check_kernels(ctx, sk, torch.as_tensor(vals, device=dev), weights,
+                         gen)
+    print_records(recs, gpu)
+    return counts, recs
+
+
+def check_attack_gradients(dev, gpu: str) -> None:
+    """model_gradients and gradient_sensitivity of attack_eval's LeNet
+    target on the card, called with TF32 on for cuBLAS and cuDNN (the
+    card's cuDNN default), against the CPU's: within ATTACK_GRAD_REL of
+    each leaf's largest element, the gradients on the card and the
+    caller's settings unchanged after each call."""
+    params, apply, x, onehot, _ = attack_eval.target(False, dev)
+    cpu = torch.device("cpu")
+    on_cpu = (apply, tree_map(lambda t: t.to(cpu), params), x.to(cpu),
+              onehot.to(cpu))
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = attack.model_gradients(apply, params, x, onehot)
+        sens = attack.gradient_sensitivity(apply, params, x, onehot)
+        if not (torch.backends.cuda.matmul.allow_tf32
+                and torch.backends.cudnn.allow_tf32):
+            raise AssertionError("attack: the caller's TF32 settings were "
+                                 "not restored")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    want = attack.model_gradients(*on_cpu)
+    want_sens = attack.gradient_sensitivity(*on_cpu)
+    rel = 0.0
+    for g, w in zip([*got, sens], [*want, want_sens]):
+        if g.device != x.device:
+            raise AssertionError(f"attack: a gradient on {g.device}")
+        rel = max(rel, float((g.cpu() - w).abs().max() / w.abs().max()))
+    print(f"attack gradients on {x.device} (caller's TF32 on) vs cpu: "
+          f"{len(got)} leaves + sensitivity, max rel {rel:.3e} (bound "
+          f"{ATTACK_GRAD_REL}) ({gpu})", flush=True)
+    if not rel <= ATTACK_GRAD_REL:
+        raise AssertionError(f"attack: card gradients differ from the CPU's "
+                             f"by {rel}")
+
+
+def attack_determinism(dev, gpu: str) -> bool:
+    """Two L-BFGS DLG runs of ATTACK_DETERMINISM_STEPS steps on LeNet with
+    one seed: whether their recorded losses are equal (cuDNN's
+    deterministic algorithms are on inside the attack). Recorded, not
+    gated: the checks compare outcomes, never trajectories."""
+    params, apply, x, onehot, n_cls = attack_eval.target(False, dev)
+    grads = attack.model_gradients(apply, params, x, onehot)
+    runs = [attack.dlg_attack(apply, params, grads, x.shape, n_cls,
+                              steps=ATTACK_DETERMINISM_STEPS, seed=1,
+                              record_every=1, optimizer="lbfgs").losses
+            for _ in range(2)]
+    same = bool(np.array_equal(runs[0], runs[1]))
+    print(f"attack determinism: two {ATTACK_DETERMINISM_STEPS}-step L-BFGS "
+          f"runs give equal losses: {same} (last {runs[0][-1]!r} / "
+          f"{runs[1][-1]!r}) ({gpu})", flush=True)
+    return same
+
+
+def run_attack_path(dev, out: pathlib.Path) -> dict:
+    """attack_eval on LeNet: the layer sweep and the --topk sweep."""
+    if out.exists():
+        shutil.rmtree(out)
+    point = ["--device", str(dev), "--out", str(out)]
+    t0 = time.perf_counter()
+    layers = attack_eval.main(point)
+    layers_s = time.perf_counter() - t0
+    topk = attack_eval.main(["--topk", "--restarts", str(ATTACK_RESTARTS),
+                             "--steps", str(ATTACK_TOPK_STEPS), *point])
+    return dict(layers=layers, topk=topk, layers_s=layers_s,
+                topk_s=time.perf_counter() - t0 - layers_s)
+
+
+def check_attack(outs: dict) -> None:
+    """Unprotected LeNet is recovered (corr > ATTACK_CORR_NONE); with every
+    layer protected it is not (|corr| < ATTACK_CORR_ALL); every row has
+    finite scores."""
+    rows = {r["protection"]: r for r in outs["layers"] + outs["topk"]}
+    if len(rows) != len(outs["layers"]) + len(attack_eval.TOPK_FRACTIONS):
+        raise AssertionError(f"attack rows {sorted(rows)}")
+    for name, r in rows.items():
+        if not all(np.isfinite(r[k]) for k in ("mssim", "uqi", "vifp",
+                                               "corr", "final_loss")):
+            raise AssertionError(f"attack {name}: non-finite scores {r}")
+    if not rows["none"]["corr"] > ATTACK_CORR_NONE:
+        raise AssertionError(f"attack: unprotected corr {rows['none']}")
+    if not abs(rows["protect_all"]["corr"]) < ATTACK_CORR_ALL:
+        raise AssertionError(f"attack: protect_all corr "
+                             f"{rows['protect_all']}")
+
+
+def attack_path(dev, gpu: str) -> collections.Counter:
+    """The attack path under drive() and its checks, the gradients on the
+    card against the CPU's, and the determinism record. Returns the path's
+    launch counts (none: no kernel of ours)."""
+    t0 = time.perf_counter()
+    outs, counts = drive("attack", lambda: run_attack_path(
+        dev, ROOT / "build" / "attack"))
+    wall = time.perf_counter() - t0
+    check_attack(outs)
+    for r in outs["layers"] + outs["topk"]:
+        print(f"attack {r['protection']}: mssim {r['mssim']!r} uqi "
+              f"{r['uqi']!r} vifp {r['vifp']!r} corr {r['corr']!r} "
+              f"final_loss {r['final_loss']!r} seconds {r['seconds']:.3f} "
+              f"({gpu})", flush=True)
+    print(f"attack path: lenet {len(outs['layers'])} layer sets "
+          f"{outs['layers_s']:.3f} s, {len(outs['topk'])} top-k fractions x "
+          f"{ATTACK_RESTARTS} restarts x {ATTACK_TOPK_STEPS} steps "
+          f"{outs['topk_s']:.3f} s, wall_s "
+          f"{wall:.3f} launches {counts} ({gpu})", flush=True)
+    check_attack_gradients(dev, gpu)
+    attack_determinism(dev, gpu)
+    return counts
+
+
+def run_drivers_path(dev, out: pathlib.Path) -> dict:
+    """fedavg_demo in both schemes, mkhe_bench at its defaults (100,000
+    values, 3 parties), masking_bench at MASK_OFFLINE_VALUES values."""
+    if out.exists():
+        shutil.rmtree(out)
+    point = ["--device", str(dev), "--out", str(out)]
+    demo = {s: fedavg_demo.main(["--scheme", s, *point])
+            for s in ("ckks", "ckks-threshold")}
+    mkhe = mkhe_bench.main(point)
+    mask = masking_bench.main(["--params", str(MASK_OFFLINE_VALUES), *point])
+    return dict(demo=demo, mkhe=mkhe, mask=mask)
+
+
+def check_drivers(outs: dict) -> None:
+    """The demo within fedavg_demo.MAX_ERR in both schemes, mkhe_bench's
+    rows within MAX_ERR, masking_bench within MASK_LEARNERS x 2^-13."""
+    for s, e in outs["demo"].items():
+        if not e < fedavg_demo.MAX_ERR:
+            raise AssertionError(f"fedavg_demo {s}: {e}")
+    if [r["mode"] for r in outs["mkhe"]] != ["single", "threshold"]:
+        raise AssertionError(f"mkhe_bench rows {outs['mkhe']}")
+    for r in outs["mkhe"]:
+        if not r["max_err"] <= MAX_ERR:
+            raise AssertionError(f"mkhe_bench {r['mode']}: {r['max_err']}")
+    bound = MASK_LEARNERS * 2.0 ** -MASK_GEOMETRY["precision_bits"]
+    for r in outs["mask"]:
+        if not r["max_err"] <= bound:
+            raise AssertionError(f"masking_bench: {r['max_err']} > {bound}")
+
+
+def drivers_path(dev, gpu: str) -> collections.Counter:
+    """The drivers path under drive() and its checks. Returns its launch
+    counts."""
+    t0 = time.perf_counter()
+    outs, counts = drive("drivers", lambda: run_drivers_path(
+        dev, ROOT / "build" / "drivers"))
+    check_drivers(outs)
+    print(f"drivers fedavg_demo max_err {json.dumps(outs['demo'])} ({gpu})",
+          flush=True)
+    for r in outs["mkhe"] + outs["mask"]:
+        print(f"drivers {json.dumps(r)}", flush=True)
+    print(f"drivers path: wall_s {time.perf_counter() - t0:.3f} launches "
+          f"{counts} ({gpu})", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -1828,10 +2118,15 @@ def main() -> int:
     recs += ring_recs
     zoo_counts, zoo_recs = zoo_path(dev, gpu, ctx, sk, gen)
     recs += zoo_recs
+    sweep_counts, sweep_recs = train_sweep_path(dev, gpu, gen)
+    recs += sweep_recs
+    attack_counts = attack_path(dev, gpu)
+    drivers_counts = drivers_path(dev, gpu)
 
     launches = collections.Counter()
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
-              mask_counts, deep_counts, ring_counts, zoo_counts):
+              mask_counts, deep_counts, ring_counts, zoo_counts,
+              sweep_counts, attack_counts, drivers_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

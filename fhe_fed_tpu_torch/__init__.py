@@ -14,9 +14,12 @@ ckks/threshold.py; no party holds the joint secret key) and the Paillier
 masking scheme (`Masking`, fed/masking.py; its offline Paillier runs on the
 host in native/paillier.py). The model zoo (models/: the JAX package's 15
 models over its parameter trees, built from the same threefry keys), the
-synthetic data (data/synth.py) and the per-model drivers
-(benchmarks/model_bench.py, benchmarks/selective_bench.py). Module paths
-mirror the JAX package's. Residues are
+synthetic data (data/synth.py), the attack suite (attack/: DLG gradient
+inversion, gradient-sensitivity masks, similarity metrics; the first path
+with gradients, in full float32, utils/precision.py) and the benchmark
+drivers (benchmarks/: model_bench, selective_bench, train_synth,
+param_sweep, attack_eval, fedavg_demo, mkhe_bench, masking_bench). Module
+paths mirror the JAX package's. Residues are
 stored as non-negative int32 (every modulus is below 2**31); Shoup
 companion words are int64 (rns/modops.py).
 

@@ -24,7 +24,7 @@ class PhaseTimer:
     synchronises the device as it starts and as it ends, so a phase times
     the device work it enqueued and nothing enqueued before it."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
+    def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
         self.phases: dict[str, float] = {}
 

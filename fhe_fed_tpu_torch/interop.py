@@ -98,6 +98,16 @@ def cnn_fedavg_state_dict_from_numpy(params) -> collections.OrderedDict:
     return sd
 
 
+def params_from_numpy(tree, device="cuda"):
+    """Nested dicts and lists of numpy arrays (a JAX parameter tree passed
+    through np.asarray) -> the same containers of tensors on `device`,
+    dtypes kept: the tree any of the port's functional models or the
+    attack suite takes."""
+    device = cuda_lib.device(device)
+    return tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
+                    tree)
+
+
 def zoo_model_from_numpy(name: str, params, state=None,
                          device="cuda") -> ModelSpec:
     """A JAX zoo model's (params, state), nested dicts and lists of numpy

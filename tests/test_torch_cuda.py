@@ -651,3 +651,78 @@ def test_model_bench_on_card(dev, tmp_path, name, kw):
         assert r["ct_bytes"] == 3 * (chunks * 2 * 4 * 8192 * 4 + header)
     for k in ("ntt_mxu_fused", "weighted_sum_fused", "decode_fused"):
         assert cuda_lib.launches[k] > 0, k
+
+
+def _lenet_target(dev):
+    from fhe_fed_tpu_torch.benchmarks import attack_eval as AE
+    return AE.target(False, dev)
+
+
+@pytest.fixture
+def tf32_on():
+    """The card's cuDNN default (TF32 on) and TF32 on for cuBLAS, as a
+    caller may leave them; the fixture's own settings restored after."""
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32)
+    mm.allow_tf32 = cudnn.allow_tf32 = True
+    yield
+    mm.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def test_attack_gradients_on_card_match_cpu(dev, tf32_on):
+    """model_gradients and gradient_sensitivity of LeNet on the card, with
+    the caller's TF32 on, within 1e-5 of each leaf's largest element of the
+    CPU's (the attack runs in full float32 whatever the caller set), and
+    the caller's settings back after each call."""
+    from fhe_fed_tpu_torch import attack
+    from fhe_fed_tpu_torch.fed.fedavg import tree_map
+    params, apply, x, onehot, _ = _lenet_target(dev)
+    got = attack.model_gradients(apply, params, x, onehot)
+    sens = attack.gradient_sensitivity(apply, params, x, onehot)
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32
+    cpu = (apply, tree_map(lambda t: t.cpu(), params), x.cpu(), onehot.cpu())
+    want = attack.model_gradients(*cpu) + [attack.gradient_sensitivity(*cpu)]
+    for g, w in zip(got + [sens], want):
+        assert g.is_cuda and g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+@pytest.mark.parametrize("optimizer,steps", [("adam", 600), ("lbfgs", 150)])
+def test_dlg_on_card_recovers_its_input(dev, optimizer, steps):
+    """tests/test_attack.py's tiny MLP on the card: DLG recovers the input
+    and the label."""
+    from fhe_fed_tpu_torch import attack
+    from fhe_fed_tpu_torch.models import layers as ML
+    k1, k2 = TF.split(TF.key(0, dev))
+    params = {"fc1": ML.dense_init(k1, 24, 12), "fc2": ML.dense_init(k2, 12,
+                                                                     5)}
+
+    def apply(p, x):
+        return ML.dense(p["fc2"], torch.relu(ML.dense(p["fc1"], x)))
+    x = np.random.default_rng(0).random((1, 24), dtype=np.float32)
+    onehot = torch.nn.functional.one_hot(torch.tensor([2], device=dev),
+                                         5).float()
+    grads = attack.model_gradients(apply, params, torch.as_tensor(
+        x, device=dev), onehot)
+    res = attack.dlg_attack(apply, params, grads, x.shape, 5, steps=steps,
+                            lr=0.05, seed=1, optimizer=optimizer)
+    assert int(np.argmax(res.label)) == 2
+    assert np.corrcoef(res.data.reshape(-1), x.reshape(-1))[0, 1] > 0.9
+
+
+def test_param_sweep_point_on_card(dev, tmp_path):
+    """param_sweep.run_config("mlp", 4096, 20) on the card, on a model
+    trained there: K1 both ways, K3 and K4 launched, a finite error, the
+    card's peak memory recorded."""
+    from fhe_fed_tpu_torch.benchmarks import param_sweep as PSW
+    cuda_lib.launches.clear()
+    r = PSW.run_config(4096, 20, "mlp", tmp_path / "keys", out=tmp_path,
+                       device=dev)
+    for k in ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+              "decode_fused"):
+        assert cuda_lib.launches[k] > 0, k
+    assert r["chunks"] == 20 and np.isfinite(r["max_err"])
+    assert r["max_err"] < 1e-3 and r["acc_plain"] > 0.8
+    assert r["peak_mem_bytes"] > 0 and "W" in r["backend"]

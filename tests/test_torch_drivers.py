@@ -1,0 +1,108 @@
+"""The port's thin drivers (fhe_fed_tpu_torch.benchmarks: fedavg_demo,
+mkhe_bench, masking_bench) and param_sweep's threshold point on the CPU,
+against the JAX drivers' records.
+
+- param_sweep --scheme ckks-threshold on the MLP (a copy of the committed
+  results/trained_mlp.npz in its results directory) appends one row to
+  params_threshold.jsonl, within max_err 1e-6 and acc_delta 0;
+- fedavg_demo in both schemes, within its 1e-4 gate;
+- mkhe_bench's rows carry the keys, in order, of the JAX driver's rows in
+  results/mkhe_bench.jsonl (one per mode), at 2,000 values; its jsonl is
+  rewritten, never appended;
+- masking_bench's record carries the JAX driver's keys, in order, and the
+  same sizes as JAX's `bench` at 170 values and 2 learners (2048-bit
+  Paillier keys); its protocol files are removed after the run.
+"""
+
+import json
+import pathlib
+import shutil
+
+import pytest
+import torch
+
+import benchmarks.common as JBC
+
+# The JAX driver points JAX at a persistent compile cache outside the
+# checkout when it is imported; these tests keep JAX's default.
+JBC.enable_compile_cache = lambda: None
+from benchmarks import masking_bench as JMB  # noqa: E402
+
+from fhe_fed_tpu.native import paillier as J_pail  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import param_sweep as PS  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import fedavg_demo as FD  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import mkhe_bench as MK  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import masking_bench as MB  # noqa: E402
+from fhe_fed_tpu_torch.native import paillier as T_pail  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TRAINED_MLP = ROOT / "results" / "trained_mlp.npz"
+MAX_ERR = 1e-6
+
+
+def test_param_sweep_threshold_main_writes_jsonl(tmp_path):
+    shutil.copy(TRAINED_MLP, tmp_path / TRAINED_MLP.name)
+    rows = PS.main(["--scheme", "ckks-threshold", "--model", "mlp",
+                    "--device", "cpu", "--out", str(tmp_path)])
+    assert len(rows) == 1 and rows[0]["scheme"] == "ckks-threshold"
+    assert rows[0]["max_err"] <= MAX_ERR and rows[0]["acc_delta"] == 0.0
+    line = (tmp_path / "params_threshold.jsonl").read_text().splitlines()
+    assert len(line) == 1 and json.loads(line[0])["scale_bits"] == 52
+
+
+@pytest.mark.parametrize("scheme", ["ckks", "ckks-threshold"])
+def test_fedavg_demo(tmp_path, scheme):
+    err = FD.main(["--scheme", scheme, "--device", "cpu",
+                   "--out", str(tmp_path)])
+    assert err < FD.MAX_ERR
+    assert (tmp_path / f"fedavg_demo_{scheme}" / "key-public.txt").exists()
+
+
+def test_mkhe_bench_rows_carry_the_jax_keys(tmp_path):
+    jax_rows = {}
+    for line in (ROOT / "results" / "mkhe_bench.jsonl").read_text(
+            ).splitlines():
+        r = json.loads(line)
+        jax_rows.setdefault(r["mode"], r)
+    MK.main(["2000", "2", "--device", "cpu", "--out", str(tmp_path)])
+    rows = MK.main(["2000", "--device", "cpu", "--out", str(tmp_path)])
+    for r in rows:
+        assert list(r) == list(jax_rows[r["mode"]]), r["mode"]
+        assert r["max_err"] <= MAX_ERR and r["backend"] == "cpu"
+    assert rows[1]["parties"] == 3 and rows[0]["ring_dim"] == 8192
+    lines = (tmp_path / "mkhe_bench.jsonl").read_text().splitlines()
+    assert [json.loads(s)["mode"] for s in lines] == ["single", "threshold"]
+
+
+@pytest.fixture
+def jax_paillier_on_the_port_build():
+    """The JAX masking wrapper loads the port's build of the same
+    paillier.cpp (as tests/test_torch_masking.py does), so it never starts
+    its in-place build."""
+    saved = J_pail._lib
+    J_pail._lib = T_pail.load_lib()
+    yield
+    J_pail._lib = saved
+
+
+def test_masking_bench_records_match_jax_keys(tmp_path,
+                                              jax_paillier_on_the_port_build):
+    got = MB.bench(170, 2, out=tmp_path, device="cpu")
+    want = JMB.bench(170, 2)
+    assert list(got) == list(want)
+    for k in ("params", "learners", "upload_bytes", "plain_bytes",
+              "comm_expansion"):
+        assert got[k] == want[k], k
+    assert got["max_err"] <= 2 * 2.0 ** -13 and got["backend"] == "cpu"
+    assert list(tmp_path.iterdir()) == []          # its files are removed
+
+
+def test_masking_bench_main_thread_sweep(tmp_path):
+    rows = MB.main(["--params", "85", "--learners", "2", "--thread-sweep",
+                    "--device", "cpu", "--out", str(tmp_path)])
+    sweep = [r for r in rows if r.get("sweep") == "threads"]
+    assert len(rows) == 1 + len(sweep) and sweep[0]["threads"] == 1
+    lines = (tmp_path / "masking_bench.jsonl").read_text().splitlines()
+    assert len(lines) == len(rows)
