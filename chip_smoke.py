@@ -141,6 +141,28 @@ Phases (each raises on failure, so the script exits non-zero):
      1e-6) and masking_bench at 8,500 values (4 learners, 2048-bit
      Paillier: the offline phase cut from the model's 1,663,370 values as
      in phase 10).
+ 17. the multidevice path (parallel/, ntt/dist.py, ckks/dist_ckks.py) on a
+     process group of world size 1 (NCCL; one rank a card): (a) BASELINE
+     config 5 through parallel/mesh.full_fed_step on a ('clients',
+     'chunks') mesh: 1,000,000 parameters x 64 clients (batch 4096, 2^52,
+     N 8192: 123 chunks, 7,872 chunk-rows, public-key encrypt in client
+     groups), within 1e-6 of the plaintext mean and equal bit for bit to
+     the single-device round on the same keys; (b) dist_poly_mul at
+     N = 8192 (4 limbs) equal to the on-chip negacyclic product (K1);
+     (c) the dist round at N = 65536 (batch 4096, 2^40, mult_depth 1;
+     256 x 256; the CNN's 3 x 1,663,370 values in 26 chunks): encrypt,
+     weighted sum (K3 over the flattened ring), rescale, decrypt (K4); the
+     ciphertexts converted to the on-chip layout give the port's on-chip
+     weighted sum, rescale (K2) and decrypt bit for bit, within 1e-3 of
+     the plaintext; then the same round in 2 gloo ranks sharing the card
+     (the coeff axis split) equal to world size 1 bit for bit; (d) the
+     party-sharded threshold decrypt of __graft_entry__.py:174-222 (3
+     parties over a ('party',) mesh: s_i * c1 + smudge, the fusion as an
+     all_reduce) within 2e-3 of the values and equal to threshold_decrypt.
+     Then K1, K3 and K4 bit-exact at the path's shapes (K1 on one encrypt
+     group (4, 8, 123, 4, 8192) and the decrypt's (123, 3, 8192), K3 over
+     the 64 clients and the dist round's (3, 26, 2, 4, 65536), K4 on the
+     dist decode's (6656, 3, 256)) and each phase timed.
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
@@ -162,10 +184,12 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fhe_fed_tpu_torch import cuda_lib
 from fhe_fed_tpu_torch import CKKS, SelectivePolicy, fhe_fedavg, plain_fedavg
@@ -175,10 +199,14 @@ from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
 from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
 from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
 from fhe_fed_tpu_torch.ckks import threshold as thr
+from fhe_fed_tpu_torch.ckks import dist_ckks as DC
+from fhe_fed_tpu_torch.ntt import dist as D
+from fhe_fed_tpu_torch.parallel import launch, mesh as PM, multihost as MH
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
 from fhe_fed_tpu_torch import attack
 from fhe_fed_tpu_torch.benchmarks import model_bench, selective_bench
-from fhe_fed_tpu_torch.benchmarks import attack_eval, fedavg_demo
+from fhe_fed_tpu_torch.benchmarks import attack_eval, baseline_configs
+from fhe_fed_tpu_torch.benchmarks import fedavg_demo
 from fhe_fed_tpu_torch.benchmarks import mkhe_bench, masking_bench
 from fhe_fed_tpu_torch.benchmarks import param_sweep, train_synth
 from fhe_fed_tpu_torch.data.synth import make_synth_images
@@ -187,7 +215,7 @@ from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.native import paillier
-from fhe_fed_tpu_torch.rns import primes
+from fhe_fed_tpu_torch.rns import modops, primes
 from fhe_fed_tpu_torch.utils import threefry
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -249,6 +277,11 @@ PATH_KERNELS = {   # the kernels each driven path must launch
     "attack": (),
     "drivers": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
                 "decode_fused"),
+    # The dist transforms are plain torch (as in JAX): K1 serves the
+    # clients x chunks round and the threshold decrypt, K3 both sums, K4
+    # every decode.
+    "multidevice": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+                    "decode_fused"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -297,6 +330,16 @@ ATTACK_RESTARTS = 1
 ATTACK_TOPK_STEPS = 200
 ATTACK_GRAD_REL = 1e-5    # card vs CPU gradients, max |d| / max |g| per leaf
 ATTACK_DETERMINISM_STEPS = 50
+# The multidevice path: BASELINE config 5 (benchmarks/baseline_configs.py:
+# 233, 1,000,000 parameters x 64 clients at batch 4096, 2^52) through
+# parallel/mesh.full_fed_step; dist_poly_mul at N = 8192; the dist round at
+# tests/test_dist_ckks.py:154's point (RING_65536) with the CNN's values;
+# the party-sharded threshold decrypt of __graft_entry__.py:174-222 with
+# its bound. The process group has one rank a card (NCCL): world size 1.
+POD_PARAMS = 1_000_000
+POD_CLIENTS = 64
+DIST_ROUND_BOUND = 1e-3   # tests/test_dist_ckks.py:208
+PARTY_BOUND = 2e-3        # __graft_entry__.py:213
 
 
 def card() -> str:
@@ -803,13 +846,7 @@ def rotation_setup(ctx, gen, width, seed=3):
         SL.num_slots(ctx)) * 0.1
     ct = ops.encrypt_encoded(ctx, pk, SL.encode_slots(ctx, z[None]), gen,
                              ctx.params.scale)
-    gks = {}
-    r = 1
-    while r < width:
-        gks[r] = KS.make_galois_key(
-            ctx, sk, KS.galois_element(r, ctx.ring_dim), gen)
-        r <<= 1
-    return sk, z, ct, gks
+    return sk, z, ct, baseline_configs.galois_keys(ctx, sk, width, gen)
 
 
 def run_rotation_path(ctx, ct, gks, width):
@@ -825,7 +862,7 @@ def check_rotation(ctx, sk, z, rot, summed, width) -> tuple[float, float]:
     errs = []
     for ct, want in (
             (rot, z[SL.slot_rotation_map(ctx.ring_dim, 1)]),
-            (summed, sum(np.roll(z, -r) for r in range(width)))):
+            (summed, baseline_configs.eval_sum_want(z, width))):
         got = SL.decode_slots(ctx, ops.decrypt_residues(ctx, sk, ct),
                               ct.scale)[0]
         if got.shape != want.shape or not np.isfinite(got).all():
@@ -848,7 +885,7 @@ def multiply_setup(ctx, pk, gen, batch, seed=4):
 
 
 def run_multiply_path(ctx, ct_a, ct_b, rlk):
-    out = ops.rescale(ctx, KS.mul_ct(ctx, ct_a, ct_b, rlk))
+    out = baseline_configs.mult_relin_rescale(ctx, ct_a, ct_b, rlk)
     torch.cuda.synchronize()
     return out
 
@@ -1895,6 +1932,370 @@ def drivers_path(dev, gpu: str) -> collections.Counter:
     return counts
 
 
+def start_process_group(dev) -> tempfile.TemporaryDirectory:
+    """The default process group of one rank on the card (NCCL), through a
+    file store in a fresh temporary directory; raises if it cannot form."""
+    store = tempfile.TemporaryDirectory()
+    if not MH.init_distributed(f"file://{store.name}/store", 1, 0, dev):
+        raise RuntimeError("the process group did not form")
+    return store
+
+
+def pod_setup(dev, n_params: int = POD_PARAMS,
+              n_clients: int = POD_CLIENTS, seed: int = 4) -> dict:
+    """Config 5 (baseline_configs.py:220-258): batch 4096, 2^52 (N 8192,
+    4 limbs), keygen(ctx, 0), n_clients payloads of n_params seeded normal
+    x 0.1 packed into ceil(n_params / N) chunks, the keys split(key(7), K)
+    and equal weights encoded at the top prime."""
+    ctx = P.make_context(P.make_params(batch=4096, scale_bits=52,
+                                       mult_depth=1), dev)
+    sk, pk = keys.keygen(ctx, 0)
+    n = ctx.ring_dim
+    chunks = -(-n_params // n)
+    rng = np.random.default_rng(seed)
+    buf = np.zeros((n_clients, chunks * n), dtype=np.float32)
+    buf[:, :n_params] = rng.standard_normal(
+        (n_clients, n_params)).astype(np.float32) * 0.1
+    want = buf.mean(axis=0, dtype=np.float64).reshape(chunks, n)
+    weights = [1.0 / n_clients] * n_clients
+    w_res, w_shoup, _ = ops._encode_weights(ctx, weights,
+                                            ctx.params.chain_len, 0)
+    return dict(ctx=ctx, sk=sk, pk=pk, n_params=n_params, want=want,
+                values=torch.as_tensor(
+                    buf.reshape(n_clients, chunks, n), device=dev),
+                keys=threefry.split(threefry.key(7, dev), n_clients),
+                weights=weights, w_res=w_res, w_shoup=w_shoup)
+
+
+def dist_setup(dev, n_values: int = CNN_PARAMS, seed: int = 15) -> dict:
+    """The dist round at RING_65536 (N 65536 = 256 x 256, 4 limbs): keys
+    keygen(ctx, 3) in the dist layout, N_CLIENTS payloads of n_values;
+    and dist_poly_mul's operands at N = 8192 (the bench moduli)."""
+    ctx = P.make_context(P.make_params(**RING_65536), dev)
+    chain = ctx.params.chain_len
+    sk, _ = keys.keygen(ctx, 3)
+    dt = D.make_dist_tables(ctx.ring_dim, ctx.params.moduli[:chain],
+                            device=dev)
+    n = ctx.ring_dim
+    vals, weights, want = make_values(N_CLIENTS, n_values, -(-n_values // n),
+                                      n, seed)
+    moduli = P.make_params(batch=4096, scale_bits=52,
+                           mult_depth=1).moduli[:4]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ab = uniform_mod_q(gen, (2, 2, len(moduli), 8192), moduli)
+    return dict(ctx=ctx, sk=sk, dt=dt, sk_d=DC.sk_to_dist(sk, dt.n1),
+                values=torch.as_tensor(vals, device=dev), weights=weights,
+                want=want, n_values=n_values, ab=ab, mul_moduli=moduli,
+                dt_mul=D.make_dist_tables(8192, moduli, device=dev))
+
+
+def party_setup(pod: dict, seed: int = 5) -> dict:
+    """__graft_entry__.py:174-222 at the config-5 context: THR_PARTIES
+    parties' batched keygen, one CNN vector (204 dense chunks) encrypted
+    under the joint key, the decrypt keys key(40 + i)."""
+    ctx = pod["ctx"]
+    dev = ctx.device
+    secrets, pkj = thr.multiparty_keygen_batched(ctx, THR_PARTIES, seed=seed)
+    v = np.random.default_rng(seed).standard_normal(
+        -(-CNN_PARAMS // ctx.ring_dim) * ctx.ring_dim).astype(np.float32)
+    v = torch.as_tensor(v.reshape(-1, ctx.ring_dim) * 0.1, device=dev)
+    return dict(secrets=secrets, values=v,
+                ct=ops.encrypt(ctx, pkj, v, threefry.key(11, dev)),
+                keys=thr.stack_keys([threefry.key(40 + i, dev)
+                                     for i in range(THR_PARTIES)]))
+
+
+def party_sharded_decrypt(ctx, mesh, secrets, ct, rng_keys):
+    """Phase (d) of __graft_entry__.dryrun_multichip: the rank's parties
+    (its block of the 'party' axis) each form s_i * c1 + smudge, their sum
+    mod q, the fusion as an all_reduce over 'party', + c0 once, the inverse
+    NTT (K1) and the decode (K4)."""
+    live = ct.live_limbs
+    idx = MH.local_slices(mesh, ("party",), (secrets.n_parties,))[0]
+    qb = ctx.q[:live, None]
+    c0, c1 = ct.data.unbind(-3)
+    t = modops.mul_mod_shoup(c1[None], secrets.s[idx, None, :live],
+                             secrets.s_shoup[idx, None, :live], qb)
+    parts = modops.add_mod(t, thr._smudge(ctx, rng_keys[idx],
+                                          ct.num_chunks, live), qb)
+    acc = ops.modsum_clients(parts, qb, ctx.pow32[:live, None],
+                             ctx.pow32_shoup[:live, None])
+    acc = modops.add_mod(PM.modsum_over(ctx, mesh, "party", acc), c0, qb)
+    coeffs = ntt_mod.intt(acc.to(torch.int32),
+                          ctx.tables.slice_limbs(0, live))
+    return encoding.decode_coeff(ctx, coeffs, ct.scale)
+
+
+def dist_round(ctx, dt, ds, sk_d, values, weights, key):
+    """The dist round on the rank's blocks: values (K, chunks, N1, N2_loc)
+    -> (ciphertexts, aggregate, rescaled, decoded) blocks."""
+    K, chunks = values.shape[:2]
+    scale = float(ctx.params.scale)
+    cts = DC.encrypt_symmetric_dist(ctx, dt, ds, sk_d,
+                                    values.reshape(K * chunks,
+                                                   *values.shape[2:]),
+                                    key, scale)
+    stacked = cts.reshape(K, chunks, *cts.shape[1:])
+    w_res, w_shoup, _ = ops._encode_weights(ctx, weights,
+                                            ctx.params.chain_len, 0)
+    agg = DC.weighted_sum_dist(ctx, stacked, w_res, w_shoup, ds)
+    res = DC.rescale_dist(ctx, dt, ds, agg)
+    return stacked, agg, res, DC.decrypt_dist(ctx, dt, ds.without_limbs(),
+                                              sk_d, res, scale)
+
+
+def dist_round_rank(rank: int, world: int) -> dict:
+    """One rank of the dist round on a ('limb', 'coeff') mesh (1, world)
+    whose ranks share the card (gloo: NCCL takes one rank a card): its
+    blocks of the aggregate and the decoded values."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dst = dist_setup(dev)
+    mesh = MH.named_mesh("cuda", (1, world), ("limb", "coeff"))
+    ds = D.DistSpec(mesh=mesh, limb_axis="limb")
+    vals = D.col_block(D.to_dist_coeff(dst["values"], dst["dt"].n1), ds,
+                       limbs=False)
+    _, agg, _, dec = dist_round(dst["ctx"], dst["dt"], ds, dst["sk_d"], vals,
+                                dst["weights"], threefry.key(7, dev))
+    torch.cuda.synchronize()
+    return {"coeff": mesh.get_local_rank(1), "agg": agg.cpu(),
+            "dec": dec.cpu()}
+
+
+def check_dist_round_ranks(outs: dict, world: int = 2) -> None:
+    """The dist round in `world` gloo ranks on the one card, its blocks
+    put together, against the world-size-1 round bit for bit."""
+    blocks = sorted(launch.spawn(dist_round_rank, world, device="cuda",
+                                 backend="gloo"), key=lambda b: b["coeff"])
+    _, agg, _, dec = outs["round"]
+    _same_bits(torch.cat([b["agg"] for b in blocks], dim=-2), agg.cpu(),
+               f"dist aggregate at world size {world}")
+    _same_bits(torch.cat([b["dec"] for b in blocks], dim=-1), dec.cpu(),
+               f"dist decrypt at world size {world}")
+
+
+def run_multidevice_path(meshes: dict, pod: dict, dst: dict,
+                         party: dict) -> dict:
+    """(a) full_fed_step over ('clients', 'chunks'); (b) dist_poly_mul;
+    (c) the dist round over ('limb', 'coeff'); (d) the party-sharded
+    threshold decrypt over ('party',)."""
+    ctx = pod["ctx"]
+    step = PM.full_fed_step(ctx, meshes["fed"])
+    out = {"step": step(pod["pk"], pod["values"], pod["keys"], pod["w_res"],
+                        pod["w_shoup"], pod["sk"])}
+    ds = D.DistSpec(mesh=meshes["dist"], limb_axis="limb")
+    dt = dst["dt_mul"]
+    a, b = (D.col_block(D.to_dist_coeff(x, dt.n1), ds) for x in dst["ab"])
+    out["prod"] = D.dist_poly_mul(a, b, dt, ds)
+    vals = D.col_block(D.to_dist_coeff(dst["values"], dst["dt"].n1), ds,
+                       limbs=False)
+    out["round"] = dist_round(dst["ctx"], dst["dt"], ds, dst["sk_d"], vals,
+                              dst["weights"],
+                              threefry.key(7, dst["ctx"].device))
+    out["party"] = party_sharded_decrypt(ctx, meshes["party"],
+                                         party["secrets"], party["ct"],
+                                         party["keys"])
+    torch.cuda.synchronize()
+    return out
+
+
+def single_device_round(pod: dict, group: int = 8) -> torch.Tensor:
+    """Config 5 on one device without a mesh: client k encrypts its whole
+    (chunks, N) block with key k (ops.encrypt over the key batch, `group`
+    clients a call), then weighted sum, rescale and decrypt."""
+    ctx, values = pod["ctx"], pod["values"]
+    stacked = torch.cat([
+        ops.encrypt(ctx, pod["pk"], values[g:g + group],
+                    pod["keys"][g:g + group]).data
+        for g in range(0, values.shape[0], group)])
+    agg = ops.weighted_sum(ctx, ops.Ciphertext(stacked, ctx.params.scale, 0),
+                           pod["weights"])
+    res = ops.rescale(ctx, agg)
+    return ops.decrypt(ctx, pod["sk"], ops.Ciphertext(
+        res.data, ctx.params.scale, res.level))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.shape != b.shape or not torch.equal(a, b):
+        raise AssertionError(f"multidevice path: {what} differs")
+
+
+def check_multidevice(outs: dict, pod: dict, dst: dict, party: dict
+                      ) -> dict:
+    """(a) within MAX_ERR of the plaintext mean and equal to the
+    single-device round; (b) equal to the on-chip negacyclic product (K1);
+    (c) the dist ciphertexts converted to the on-chip layout go through
+    the port's on-chip weighted sum (K3), rescale (K2) and decrypt (K2,
+    K4) to the same bits, within DIST_ROUND_BOUND of the plaintext; (d)
+    within PARTY_BOUND of the values and equal to the stacked
+    threshold_decrypt. Returns the errors."""
+    errs = {}
+    step = outs["step"]
+    if not bool(torch.isfinite(step).all()):
+        raise AssertionError("multidevice path: step not finite")
+    flat = step.cpu().double().numpy().reshape(-1)[:pod["n_params"]]
+    errs["step"] = float(np.max(np.abs(
+        flat - pod["want"].reshape(-1)[:pod["n_params"]])))
+    _same_bits(step, single_device_round(pod), "step vs single device")
+
+    a, b = dst["ab"]
+    ctx_m = pod["ctx"]
+    tb = ctx_m.tables.slice_limbs(0, 4)
+    q = torch.as_tensor(np.asarray(dst["mul_moduli"], dtype=np.int64),
+                        device=a.device)[:, None]
+    want = ntt_mod.intt(modops.mul_mod(ntt_mod.ntt(a, tb), ntt_mod.ntt(b, tb),
+                                       q).to(torch.int32), tb)
+    _same_bits(D.from_dist_coeff(outs["prod"]), want, "dist_poly_mul")
+
+    ctx = dst["ctx"]
+    stacked, agg, res, dec = outs["round"]
+    scale = float(ctx.params.scale)
+    oc = ops.weighted_sum(ctx, ops.Ciphertext(DC.ct_dist_to_onchip(stacked),
+                                              scale, 0), dst["weights"])
+    _same_bits(DC.ct_dist_to_onchip(agg), oc.data, "dist weighted sum")
+    oc = ops.rescale(ctx, oc)
+    _same_bits(DC.ct_dist_to_onchip(res), oc.data, "dist rescale")
+    got = D.from_dist_coeff(dec)
+    _same_bits(got, ops.decrypt(ctx, dst["sk"], ops.Ciphertext(
+        oc.data, scale, oc.level)), "dist decrypt")
+    flat = got.cpu().double().numpy().reshape(-1)[:dst["n_values"]]
+    errs["dist_round"] = float(np.max(np.abs(
+        flat - dst["want"].reshape(-1)[:dst["n_values"]])))
+
+    errs["party"] = float((outs["party"].double()
+                           - party["values"].double()).abs().max())
+    _same_bits(outs["party"], thr.threshold_decrypt(
+        ctx_m, party["secrets"], party["ct"], party["keys"]),
+        "party-sharded decrypt vs threshold_decrypt")
+    for k, bound in (("step", MAX_ERR), ("dist_round", DIST_ROUND_BOUND),
+                     ("party", PARTY_BOUND)):
+        if not errs[k] <= bound:
+            raise AssertionError(f"multidevice {k}: max_err {errs[k]} > "
+                                 f"{bound}")
+    return errs
+
+
+def check_multidevice_kernels(outs: dict, pod: dict, dst: dict, gen,
+                              reps=10) -> list[dict]:
+    """K1, K3 and K4 against their plain versions at the shapes the path
+    gives them: K1's forward on one encrypt group (4 polynomials x 8
+    clients x the config-5 chunks) and its inverse on the rescaled
+    aggregate, K3 over the 64 clients and over the dist round's flattened
+    (3, chunks, 2, 4, 65536), K4 on the dist decode's (chunks x 256, 3,
+    256)."""
+    ctx = pod["ctx"]
+    L = ctx.params.chain_len
+    chunks = pod["values"].shape[1]
+    n = ctx.ring_dim
+    recs = []
+    for shape, fwd, limbs in (((4, 8, chunks, L, n), True, L),
+                              ((chunks, L - 1, n), False, L - 1)):
+        mt = ctx.tables.mxu.slice_limbs(0, limbs)
+        x = uniform_mod_q(gen, shape, ctx.params.moduli)
+        kern, plain = k1_pair(fwd)
+        _record(recs, kern.__name__, kern(x, mt), plain(x, mt),
+                lambda: kern(x, mt), lambda: plain(x, mt), reps,
+                k1_work(x, mt, fwd), **k1_extra(mt))
+        del x
+    record_k3(recs, ctx, uniform_mod_q(
+        gen, (pod["values"].shape[0], chunks, 2, L, n), ctx.params.moduli),
+        pod["weights"], 3)
+    dctx = dst["ctx"]
+    stacked = outs["round"][0]
+    record_k3(recs, dctx, stacked.reshape(*stacked.shape[:4], -1),
+              dst["weights"], reps)
+    rows = DC._coeff_rows(dctx, dst["dt"], D.DistSpec(), dst["sk_d"],
+                          outs["round"][2])
+    record_k4(recs, dctx, rows, dctx.params.scale, reps)
+    return recs
+
+
+def multidevice_path(dev, gpu: str, gen) -> tuple[collections.Counter,
+                                                   list[dict]]:
+    """The multidevice path on a process group of world size 1 (NCCL):
+    its set-up, (a)-(d) under drive() and their checks, the kernels at the
+    path's shapes, then each phase timed. Returns the path's launch counts
+    and the kernel records."""
+    t0 = time.perf_counter()
+    store = start_process_group(dev)
+    try:
+        kind = dev.type
+        meshes = {"fed": PM.make_fed_mesh(1, 1, kind),
+                  "dist": MH.named_mesh(kind, (1, 1), ("limb", "coeff")),
+                  "party": MH.named_mesh(kind, (1,), ("party",))}
+        pod = pod_setup(dev)
+        dst = dist_setup(dev)
+        party = party_setup(pod)
+        torch.cuda.synchronize()
+        print(f"multidevice setup: {dist.get_backend()} world "
+              f"{dist.get_world_size()}; config 5 {pod['n_params']} x "
+              f"{pod['values'].shape[0]} clients in "
+              f"{pod['values'].shape[1]} chunks "
+              f"(N {pod['ctx'].ring_dim}); dist N {dst['ctx'].ring_dim} = "
+              f"{dst['dt'].n1} x {dst['dt'].n2}, {N_CLIENTS} x "
+              f"{dst['values'].shape[1]} chunks; {THR_PARTIES} parties; "
+              f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+        outs, counts = drive("multidevice", lambda: run_multidevice_path(
+            meshes, pod, dst, party))
+        errs = check_multidevice(outs, pod, dst, party)
+        print(f"multidevice path: max_err {json.dumps(errs)} (bit-equal to "
+              f"the single-device round, the on-chip product, the on-chip "
+              f"round and threshold_decrypt) launches {counts}", flush=True)
+        t1 = time.perf_counter()
+        check_dist_round_ranks(outs)
+        print(f"multidevice dist round in 2 gloo ranks on the card == world "
+              f"size 1, bit for bit: ok wall_s={time.perf_counter() - t1:.3f}"
+              f" ({gpu})", flush=True)
+        recs = check_multidevice_kernels(outs, pod, dst, gen)
+        print_records(recs, gpu)
+        del outs
+        multidevice_timings(meshes, pod, dst, party, gpu)
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    return counts, recs
+
+
+def multidevice_timings(meshes, pod, dst, party, gpu: str) -> None:
+    ctx = pod["ctx"]
+    mesh = meshes["fed"]
+    args = (pod["w_res"], pod["w_shoup"])
+    stacked = PM._encrypt_clients(ctx, mesh, pod["pk"], pod["values"],
+                                  pod["keys"])
+    agg = PM.sharded_weighted_sum(ctx, mesh)(stacked, *args)
+    step = PM.full_fed_step(ctx, mesh)
+    ds = D.DistSpec(mesh=meshes["dist"], limb_axis="limb")
+    dt = dst["dt_mul"]
+    a, b = (D.to_dist_coeff(x, dt.n1) for x in dst["ab"])
+    vals = D.to_dist_coeff(dst["values"], dst["dt"].n1)
+    key = threefry.key(7, ctx.device)
+    phases = {
+        "pod_encrypt": (lambda: PM._encrypt_clients(
+            ctx, mesh, pod["pk"], pod["values"], pod["keys"]), 2),
+        "pod_aggregate": (lambda: PM.sharded_weighted_sum(ctx, mesh)(
+            stacked, *args), 5),
+        "pod_rescale_decrypt": (lambda: PM._rescale_decrypt(
+            ctx, agg, pod["sk"]), 5),
+        "pod_step": (lambda: step(pod["pk"], pod["values"], pod["keys"],
+                                  *args, pod["sk"]), 2),
+        "dist_poly_mul_8192": (lambda: D.dist_poly_mul(a, b, dt, ds), 5),
+        "dist_round_65536": (lambda: dist_round(
+            dst["ctx"], dst["dt"], ds, dst["sk_d"], vals, dst["weights"],
+            key), 3),
+        "party_decrypt": (lambda: party_sharded_decrypt(
+            ctx, meshes["party"], party["secrets"], party["ct"],
+            party["keys"]), 5),
+    }
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    for k, (fn, reps) in phases.items():
+        print(f"phase {k}_ms: {cuda_ms(fn, reps):.4f} ({gpu})", flush=True)
+    print(f"multidevice peak_mem_bytes: "
+          f"{torch.cuda.max_memory_allocated(ctx.device)} ({gpu})",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=pathlib.Path, default=None,
@@ -2122,11 +2523,13 @@ def main() -> int:
     recs += sweep_recs
     attack_counts = attack_path(dev, gpu)
     drivers_counts = drivers_path(dev, gpu)
+    md_counts, md_recs = multidevice_path(dev, gpu, gen)
+    recs += md_recs
 
     launches = collections.Counter()
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
               mask_counts, deep_counts, ring_counts, zoo_counts,
-              sweep_counts, attack_counts, drivers_counts):
+              sweep_counts, attack_counts, drivers_counts, md_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

@@ -18,8 +18,12 @@ synthetic data (data/synth.py), the attack suite (attack/: DLG gradient
 inversion, gradient-sensitivity masks, similarity metrics; the first path
 with gradients, in full float32, utils/precision.py) and the benchmark
 drivers (benchmarks/: model_bench, selective_bench, train_synth,
-param_sweep, attack_eval, fedavg_demo, mkhe_bench, masking_bench). Module
-paths mirror the JAX package's. Residues are
+param_sweep, attack_eval, fedavg_demo, mkhe_bench, masking_bench,
+baseline_configs, scaling_virtual). Multi-device aggregation runs on
+torch.distributed, one process a device (parallel/: the clients x chunks
+round; ntt/dist.py and ckks/dist_ckks.py: the limb- and
+coefficient-sharded NTT and the round in its layout). Module paths mirror
+the JAX package's. Residues are
 stored as non-negative int32 (every modulus is below 2**31); Shoup
 companion words are int64 (rns/modops.py).
 

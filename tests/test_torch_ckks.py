@@ -215,7 +215,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "benchmarks/attack_eval.py", "benchmarks/train_synth.py",
                 "benchmarks/param_sweep.py", "benchmarks/fedavg_demo.py",
                 "benchmarks/mkhe_bench.py", "benchmarks/masking_bench.py",
-                "utils/precision.py"):
+                "utils/precision.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/multihost.py",
+                "parallel/launch.py", "ntt/dist.py", "ckks/dist_ckks.py",
+                "benchmarks/baseline_configs.py",
+                "benchmarks/scaling_virtual.py"):
         assert f"fhe_fed_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "optax", "fhe_fed_tpu", "benchmarks")
     for f in files:

@@ -726,3 +726,83 @@ def test_param_sweep_point_on_card(dev, tmp_path):
     assert r["chunks"] == 20 and np.isfinite(r["max_err"])
     assert r["max_err"] < 1e-3 and r["acc_plain"] > 0.8
     assert r["peak_mem_bytes"] > 0 and "W" in r["backend"]
+
+
+@pytest.fixture
+def nccl_world1(dev, tmp_path):
+    """A process group of one rank on the card (NCCL), destroyed after."""
+    import torch.distributed as dist
+    from fhe_fed_tpu_torch.parallel import multihost as MH
+    assert MH.init_distributed(f"file://{tmp_path}/store", 1, 0, dev)
+    yield
+    dist.destroy_process_group()
+
+
+def test_full_fed_step_world1_nccl_equals_single_device_round(
+        dev, nccl_world1):
+    """parallel/mesh.full_fed_step on an NCCL ('clients', 'chunks') mesh of
+    world size 1: K1, K3 and K4 launched, the result equal to the port's
+    single-device round (ops.encrypt over the same key batch, weighted
+    sum, rescale, decrypt) bit for bit."""
+    from fhe_fed_tpu_torch.parallel import mesh as PM
+    pod = chip_smoke.pod_setup(dev, n_params=20_000, n_clients=12)
+    mesh = PM.make_fed_mesh(1, 1)
+    cuda_lib.launches.clear()
+    got = PM.full_fed_step(pod["ctx"], mesh)(
+        pod["pk"], pod["values"], pod["keys"], pod["w_res"], pod["w_shoup"],
+        pod["sk"])
+    torch.cuda.synchronize()
+    for k in ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+              "decode_fused"):
+        assert cuda_lib.launches[k] > 0, k
+    want = chip_smoke.single_device_round(pod, group=5)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = (got.double().cpu().numpy().reshape(-1)[:20_000]
+           - pod["want"].reshape(-1)[:20_000])
+    assert np.max(np.abs(err)) <= 1e-6
+
+
+@pytest.mark.parametrize("n,L", [(8192, 4), (65536, 4), (1024, 3)])
+def test_dist_ntt_on_card_equals_cpu(dev, n, L):
+    """ntt/dist.py's transforms (plain torch) on the card against the
+    same on the CPU, and the product against the on-chip one."""
+    from fhe_fed_tpu_torch.ntt import dist as D
+    mod = primes.ntt_primes(n, L)
+    x = uniform_mod_q(_gen(dev, n), (2, L, n), mod)
+    dt = D.make_dist_tables(n, mod, device=dev)
+    dt_cpu = D.make_dist_tables(n, mod, device="cpu")
+    ds = D.DistSpec()
+    xd = D.to_dist_coeff(x, dt.n1)
+    got = D.dist_ntt(xd, dt, ds)
+    assert torch.equal(got.cpu(), D.dist_ntt(xd.cpu(), dt_cpu, ds))
+    assert torch.equal(D.dist_intt(got, dt, ds), xd)
+    tb = tables.make_tables(n, mod, device=dev)
+    assert torch.equal(D.dist_to_eval(got), ntt_mod.ntt(x, tb))
+
+
+def test_dist_round_on_card_equals_cpu(dev):
+    """ckks/dist_ckks.make_dist_fed_step at N = 65536 on the card (K3 on
+    the flattened ring, K4 on the decode rows) equals the CPU's."""
+    from fhe_fed_tpu_torch.ckks import dist_ckks as DC
+    from fhe_fed_tpu_torch.ntt import dist as D
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        ctx = P.make_context(P.make_params(**chip_smoke.RING_65536), d)
+        sk, _ = keys.keygen(ctx, 3)
+        dt = D.make_dist_tables(ctx.ring_dim,
+                                ctx.params.moduli[:ctx.params.chain_len],
+                                device=d)
+        vals = np.random.default_rng(1).standard_normal(
+            (2, 1, ctx.ring_dim)).astype(np.float32) * 0.1
+        step = DC.make_dist_fed_step(ctx, dt, D.DistSpec(), [0.75, 0.25])
+        cuda_lib.launches.clear()
+        outs.append(step(DC.sk_to_dist(sk, dt.n1), D.to_dist_coeff(
+            torch.as_tensor(vals, device=d), dt.n1), TF.key(3, d)))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_lib.launches["weighted_sum_fused"] > 0
+            assert cuda_lib.launches["decode_fused"] > 0
+    assert torch.equal(outs[0].cpu().view(torch.int32),
+                       outs[1].view(torch.int32))
+    want = vals[0] * 0.75 + vals[1] * 0.25
+    assert np.max(np.abs(D.from_dist_coeff(outs[1]).numpy() - want)) < 1e-3

@@ -1,6 +1,6 @@
 """The port's thin drivers (fhe_fed_tpu_torch.benchmarks: fedavg_demo,
-mkhe_bench, masking_bench) and param_sweep's threshold point on the CPU,
-against the JAX drivers' records.
+mkhe_bench, masking_bench, baseline_configs, scaling_virtual) and
+param_sweep's threshold point on the CPU, against the JAX drivers' records.
 
 - param_sweep --scheme ckks-threshold on the MLP (a copy of the committed
   results/trained_mlp.npz in its results directory) appends one row to
@@ -11,9 +11,16 @@ against the JAX drivers' records.
   rewritten, never appended;
 - masking_bench's record carries the JAX driver's keys, in order, and the
   same sizes as JAX's `bench` at 170 values and 2 learners (2048-bit
-  Paillier keys); its protocol files are removed after the run.
+  Paillier keys); its protocol files are removed after the run;
+- baseline_configs' configs 1 and 3 and a thinned config 5 (in one
+  process, world size 1, and in 2 gloo ranks) and scaling_virtual at 1
+  and 2 ranks carry the keys, in order, of the JAX drivers' committed
+  records (results/baseline_configs_tpu.jsonl,
+  results/scaling_virtual.jsonl);
+- each ported driver's flags are the JAX driver's plus --device / --out.
 """
 
+import ast
 import json
 import pathlib
 import shutil
@@ -34,6 +41,11 @@ from fhe_fed_tpu_torch.benchmarks import fedavg_demo as FD  # noqa: E402
 from fhe_fed_tpu_torch.benchmarks import mkhe_bench as MK  # noqa: E402
 from fhe_fed_tpu_torch.benchmarks import masking_bench as MB  # noqa: E402
 from fhe_fed_tpu_torch.native import paillier as T_pail  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import baseline_configs as BC  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import scaling_virtual as SV  # noqa: E402
+from fhe_fed_tpu_torch.parallel import launch  # noqa: E402
+
+import _torch_dist_child as C  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -106,3 +118,93 @@ def test_masking_bench_main_thread_sweep(tmp_path):
     assert len(rows) == 1 + len(sweep) and sweep[0]["threads"] == 1
     lines = (tmp_path / "masking_bench.jsonl").read_text().splitlines()
     assert len(lines) == len(rows)
+
+
+def _jax_records(name: str) -> dict:
+    """The JAX driver's committed records by metric (the last of each)."""
+    rows = {}
+    for line in (ROOT / "results" / name).read_text().splitlines():
+        r = json.loads(line)
+        rows[r.get("metric", "row")] = r
+    return rows
+
+
+def test_baseline_configs_1_and_3(tmp_path):
+    rows = BC.main(["--configs", "1,3", "--device", "cpu",
+                    "--out", str(tmp_path)])
+    want = _jax_records("baseline_configs_tpu.jsonl")
+    assert [r["metric"] for r in rows] == ["ckks_example_2client_4096slots",
+                                           "fedavg_100k_8clients"]
+    for r in rows:
+        assert list(r) == list(want[r["metric"]]), r["metric"]
+        assert r["max_err"] <= MAX_ERR and r["backend"] == "cpu"
+        assert r["value"] > 0
+    lines = (tmp_path / "baseline_configs_cpu.jsonl").read_text().splitlines()
+    assert [json.loads(s)["metric"] for s in lines] == [r["metric"]
+                                                        for r in rows]
+
+
+def test_baseline_config5_world_size_1(tmp_path, monkeypatch):
+    """--cpu makes a one-rank gloo group, runs config 5 thinned and says
+    so in the record; the group is gone afterwards."""
+    monkeypatch.setattr(BC, "POD_SHAPE_CPU", C.POD_SHAPE_SMALL)
+    (row,) = BC.main(["--configs", "5", "--cpu", "--out", str(tmp_path)])
+    want = _jax_records("baseline_configs_tpu.jsonl")
+    assert list(row) == list(want["pod_fedavg_1M_64clients"])
+    assert row["mesh"] == {"clients": 1, "chunks": 1}
+    assert row["config"] == {"n_params": 20_000, "n_clients": 4}
+    assert row["max_err"] <= MAX_ERR and "world size 1" in row["note"]
+    assert not torch.distributed.is_initialized()
+
+
+def test_baseline_config5_in_two_ranks(tmp_path):
+    """Under a 2-rank group the mesh is (clients 2, chunks 1) and the
+    record adds the one-rank time and the scaling efficiency."""
+    rows = launch.spawn(C.baseline_config5, 2, (str(tmp_path),),
+                        device="cpu")
+    assert rows[0] == rows[1]
+    r = rows[0]
+    assert r["mesh"] == {"clients": 2, "chunks": 1} and r["n_devices"] == 2
+    assert r["max_err"] <= MAX_ERR and r["t_1dev_s"] > 0
+    assert r["scaling_efficiency"] > 0 and "note" not in r
+    lines = (tmp_path / "baseline_configs_cpu.jsonl").read_text().splitlines()
+    assert len(lines) == 1                  # rank 0 alone writes
+
+
+def test_scaling_virtual_two_ranks(tmp_path, monkeypatch):
+    monkeypatch.setattr(SV, "SIZES", (1, 2))
+    rows = SV.main(["--chunks-per-device", "1", "--clients", "2", "--reps",
+                    "1", "--device", "cpu", "--out", str(tmp_path)])
+    want = _jax_records("scaling_virtual.jsonl")["row"]
+    assert [r["devices"] for r in rows] == [1, 2]
+    for r in rows:
+        assert list(r) == list(want) and r["backend"] == "cpu"
+        assert r["wall_mesh_s"] > 0 and r["wall_serial_same_work_s"] > 0
+    assert rows[1]["chunks"] == 2 and rows[0]["weak_scaling_efficiency_raw"] \
+        == 1.0
+    lines = (tmp_path / "scaling_virtual.jsonl").read_text().splitlines()
+    assert len(lines) == 2
+
+
+def _flags(path: pathlib.Path) -> set[str]:
+    """The option strings of every add_argument call in a driver."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "add_argument"):
+            out |= {a.value for a in node.args
+                    if isinstance(a, ast.Constant)
+                    and str(a.value).startswith("--")}
+    return out
+
+
+@pytest.mark.parametrize("driver", [
+    "baseline_configs", "scaling_virtual", "model_bench", "selective_bench",
+    "train_synth", "param_sweep", "attack_eval", "fedavg_demo", "mkhe_bench",
+    "masking_bench"])
+def test_driver_flags_are_the_jax_drivers_and_device_out(driver):
+    jax_flags = _flags(ROOT / "benchmarks" / f"{driver}.py")
+    port_flags = _flags(ROOT / "fhe_fed_tpu_torch" / "benchmarks"
+                        / f"{driver}.py")
+    assert jax_flags <= port_flags, jax_flags - port_flags
+    assert {"--device", "--out"} <= port_flags

@@ -17,6 +17,7 @@ The thin drivers (fedavg_demo, mkhe_bench, masking_bench) and param_sweep's
 threshold point are tests/test_torch_drivers.py's.
 """
 
+import functools
 import pathlib
 import shutil
 
@@ -48,6 +49,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 TRAINED_MLP = ROOT / "results" / "trained_mlp.npz"
 MAX_ERR = 1e-6
 N_EVAL = 4096
+SWEEP_SEED = 7           # the helpers of test_run_config_matches_jax
 
 
 def test_five_adam_steps_match_optax():
@@ -130,8 +132,17 @@ def sweep_out(tmp_path_factory):
 
 
 @pytest.mark.parametrize("bits", [20, 52])
-def test_run_config_matches_jax(sweep_out, bits):
+def test_run_config_matches_jax(sweep_out, bits, monkeypatch):
+    # One seed for both helpers, and the keys written before either round,
+    # so both load them and encrypt from the same key stream: acc_fhe then
+    # compares equal ciphertexts. Unseeded, the packages draw independent
+    # noise, which at 20 bits flips a few argmaxes either way.
+    for mod in (PS, JPS):
+        monkeypatch.setattr(mod, "CKKS", functools.partial(mod.CKKS,
+                                                           seed=SWEEP_SEED))
     wd = sweep_out / f"keys_4096_{bits}"
+    PS.CKKS("ckks", 4096, bits, cryptodir=str(wd),
+            device="cpu").genCryptoContextAndKeyGen()
     got = PS.run_config(4096, bits, "mlp", wd, out=sweep_out, device="cpu")
     mtime = TRAINED_MLP.stat().st_mtime_ns
     want = JPS.run_config(4096, bits, "mlp", str(wd))
