@@ -163,12 +163,26 @@ Phases (each raises on failure, so the script exits non-zero):
      group (4, 8, 123, 4, 8192) and the decrypt's (123, 3, 8192), K3 over
      the 64 clients and the dist round's (3, 26, 2, 4, 65536), K4 on the
      dist decode's (6656, 3, 256)) and each phase timed.
+ 18. the bench path: fhe_fed_tpu_torch.bench.headline, the port of
+     bench.py's round, at its default schedule (init twice from the
+     committed keys, two warm-up blocks, 5 blocks of 16 rounds, 3
+     public-key and 3 fused blocks, medians, host clock) under the card's
+     torch.Generator, at 204 chunks (8192 values a chunk) and 407 (4096);
+     each result's JSON dict on a line of its own, max_err <= 1e-6. Then,
+     at each packing, bench's phases timed with CUDA events beside the
+     host-timed medians; one staged block of 16 rounds traced with
+     torch.profiler under each PRNG (the card's busy time against the
+     host's, and the calls that make the host wait for the card); K1
+     forward bit-exact on the cohort encrypt's batch ((612 / 1221, 4,
+     8192)) and the public-key encrypt's ((4, 3, 204 / 407, 4, 8192)),
+     and K4 on the path's decrypt residues ((204 / 407, 4, 8192)).
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
 sampling step, one fused threshold round and its smudging step are traced
-with torch.profiler and the tables written to DIR. The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+with torch.profiler and the tables written to DIR, and so are the bench
+path's traced blocks. The line before the last is {"kernels": [...]}; the
+last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -203,7 +217,7 @@ from fhe_fed_tpu_torch.ckks import dist_ckks as DC
 from fhe_fed_tpu_torch.ntt import dist as D
 from fhe_fed_tpu_torch.parallel import launch, mesh as PM, multihost as MH
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
-from fhe_fed_tpu_torch import attack
+from fhe_fed_tpu_torch import attack, bench
 from fhe_fed_tpu_torch.benchmarks import model_bench, selective_bench
 from fhe_fed_tpu_torch.benchmarks import attack_eval, baseline_configs
 from fhe_fed_tpu_torch.benchmarks import fedavg_demo
@@ -282,6 +296,8 @@ PATH_KERNELS = {   # the kernels each driven path must launch
     # every decode.
     "multidevice": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
                     "decode_fused"),
+    "bench": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+              "decode_fused"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -340,6 +356,8 @@ POD_PARAMS = 1_000_000
 POD_CLIENTS = 64
 DIST_ROUND_BOUND = 1e-3   # tests/test_dist_ckks.py:208
 PARTY_BOUND = 2e-3        # __graft_entry__.py:213
+# The bench path: bench.py's two packings, values a chunk -> chunks.
+BENCH_CHUNKS = {8192: 204, 4096: 407}
 
 
 def card() -> str:
@@ -2296,13 +2314,158 @@ def multidevice_timings(meshes, pod, dst, party, gpu: str) -> None:
           flush=True)
 
 
+def bench_setup(dev, cap: int) -> bench.Cohort:
+    """bench's cohort at `cap` values a chunk: its context and the
+    committed keys (bench.run_init), the CNN's 3 x 1,663,370 values, the
+    Generator PRNG."""
+    _, params, ctx, sk, pk = bench.run_init(dev)
+    values, _ = bench.make_clients(CNN_PARAMS, N_CLIENTS, params.ring_dim,
+                                   cap, device=dev)
+    return bench.Cohort(ctx, sk, pk, values, [1.0 / N_CLIENTS] * N_CLIENTS,
+                        "generator")
+
+
+def check_bench(results: dict) -> None:
+    """Each headline at its chunk count, every phase a positive finite
+    time, max_err <= MAX_ERR."""
+    for cap, r in results.items():
+        cfg = r["config"]
+        if (cfg["chunks"], cfg["values_per_ct"], cfg["backend"]) != (
+                BENCH_CHUNKS[cap], cap, "cuda"):
+            raise AssertionError(f"bench at {cap} values a chunk: {cfg}")
+        if not all(0 < v < float("inf") for v in r["phases"].values()):
+            raise AssertionError(f"bench phases {r['phases']}")
+        if not r["max_err"] <= MAX_ERR:
+            raise AssertionError(f"bench at {cap}: max_err {r['max_err']} > "
+                                 f"{MAX_ERR}")
+
+
+def bench_event_ms(c: bench.Cohort, gen) -> dict:
+    """bench's phases under CUDA events (cuda_ms over N_TIMES calls after
+    a warm-up), in its units: ms a client for the encrypts, a round for
+    the others. Unlike a bench block, each call's result is freed before
+    the next."""
+    k = c.values.shape[0]
+    reps = bench.N_TIMES
+    ct = ops.encrypt_symmetric_stacked(c.ctx, c.sk, c.values, gen)
+    agg = ops.weighted_sum(c.ctx, ct, c.weights)
+    return {
+        "encrypt": cuda_ms(lambda: ops.encrypt_symmetric_stacked(
+            c.ctx, c.sk, c.values, gen), reps) / k,
+        "aggregate": cuda_ms(lambda: ops.weighted_sum(c.ctx, ct, c.weights),
+                             reps),
+        "decrypt": cuda_ms(lambda: ops.decrypt(c.ctx, c.sk, agg), reps),
+        "encrypt_publickey": cuda_ms(lambda: ops.encrypt_stacked(
+            c.ctx, c.pk, c.values, gen), reps) / k,
+        "round_fused_1dispatch": cuda_ms(lambda: ops.fedavg_round_fused(
+            c.ctx, c.sk, c.values, gen, c.weights), reps),
+    }
+
+
+def trace_bench_block(c: bench.Cohort, tag: int, rounds: int,
+                      out_dir: pathlib.Path | None) -> dict:
+    """One staged bench block (bench.run_block) under torch.profiler after
+    a 2-round warm-up block: its host milliseconds (profiler on), the
+    card's busy milliseconds (the kernels' self device time summed), the
+    idle share between them, and the calls in it that make the host wait
+    for the card (synchronise, copies, scalar reads) by name and count.
+    The table goes to out_dir when given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile as prof, ProfilerActivity
+    bench.run_block(c, tag, 2)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        bench.run_block(c, tag, rounds)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = p.key_averages()
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in events
+                         if e.device_type == DeviceType.CUDA)
+    waits = {e.key: e.count for e in events
+             if e.device_type == DeviceType.CPU and any(
+                 w in e.key for w in ("Synchronize", "Memcpy",
+                                      "_local_scalar_dense"))}
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        chunks = c.values.shape[1]
+        (out_dir / f"profile_bench_{chunks}_{c.prng}.txt").write_text(
+            events.table(sort_by="cuda_time_total", row_limit=25))
+    return dict(rounds=rounds, wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, waits=waits)
+
+
+def check_bench_kernels(c: bench.Cohort, gen, reps=10) -> list[dict]:
+    """K1 forward on the cohort encrypt's batch (3 x chunks, 4, N) and the
+    public-key encrypt's (4, 3, chunks, 4, N), uniform residues, and K4 on
+    the round's decrypt residues (chunks, 4, N); each against its plain
+    version, bit-exactly, timed."""
+    ctx = c.ctx
+    K, chunks, n = c.values.shape
+    L = ctx.params.chain_len
+    mt = ctx.tables.mxu.slice_limbs(0, L)
+    kern, plain = k1_pair(True)
+    plain = chunked(plain)
+    recs = []
+    for shape in ((K * chunks, L, n), (4, K, chunks, L, n)):
+        x = uniform_mod_q(gen, shape, ctx.params.moduli)
+        _record(recs, kern.__name__, kern(x, mt), plain(x, mt),
+                lambda: kern(x, mt), lambda: plain(x, mt), reps,
+                k1_work(x, mt, True), **k1_extra(mt),
+                gemm_library_ms=k1_gemm_library_ms(
+                    (x.numel() // (L * n), L, n), mt, True, gen))
+        del x
+    agg = ops.weighted_sum(ctx, ops.encrypt_symmetric_stacked(
+        ctx, c.sk, c.values, gen), c.weights)
+    record_k4(recs, ctx, ops.decrypt_residues(ctx, c.sk, agg), agg.scale,
+              reps)
+    return recs
+
+
+def bench_path(dev, gpu: str, gen, prof_dir: pathlib.Path | None
+               ) -> tuple[collections.Counter, list[dict]]:
+    """The bench path under drive() (bench.headline at its default
+    schedule, Generator PRNG, at both packings) and its checks, each
+    headline's JSON dict on a line of its own; then at each packing the
+    phases under CUDA events beside the host-timed medians, one staged
+    block traced under each PRNG and the path's kernel records. Returns
+    the path's launch counts and records."""
+    t0 = time.perf_counter()
+    results, counts = drive("bench", lambda: {
+        cap: bench.headline(cap, "generator", dev) for cap in BENCH_CHUNKS})
+    check_bench(results)
+    for r in results.values():
+        print(json.dumps(r), flush=True)
+    print(f"bench path: wall_s {time.perf_counter() - t0:.3f} launches "
+          f"{counts} ({gpu})", flush=True)
+    recs = []
+    for cap, chunks in BENCH_CHUNKS.items():
+        c = bench_setup(dev, cap)
+        host = results[cap]["phases"]
+        phases = {k: dict(host_ms=1e3 * host[k], event_ms=ms)
+                  for k, ms in bench_event_ms(c, gen).items()}
+        print("bench_vs_events " + json.dumps(dict(
+            chunks=chunks, card=gpu, phases=phases)), flush=True)
+        for prng in bench.PRNGS:
+            tr = trace_bench_block(dataclasses.replace(c, prng=prng), 7,
+                                   bench.N_TIMES, prof_dir)
+            print("bench_trace " + json.dumps(dict(
+                chunks=chunks, prng=prng, card=gpu, **tr)), flush=True)
+        krecs = check_bench_kernels(c, gen)
+        print_records(krecs, gpu)
+        recs += krecs
+        del c
+    return counts, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=pathlib.Path, default=None,
                     help="write torch.profiler tables of one rotation, one "
                          "batch multiply, one API encrypt and its threefry "
                          "sampling, one fused threshold round and its "
-                         "smudging step to this directory")
+                         "smudging step, and the bench path's traced "
+                         "blocks to this directory")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2525,11 +2688,14 @@ def main() -> int:
     drivers_counts = drivers_path(dev, gpu)
     md_counts, md_recs = multidevice_path(dev, gpu, gen)
     recs += md_recs
+    bench_counts, bench_recs = bench_path(dev, gpu, gen, args.profile)
+    recs += bench_recs
 
     launches = collections.Counter()
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
               mask_counts, deep_counts, ring_counts, zoo_counts,
-              sweep_counts, attack_counts, drivers_counts, md_counts):
+              sweep_counts, attack_counts, drivers_counts, md_counts,
+              bench_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

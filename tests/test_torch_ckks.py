@@ -219,7 +219,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "parallel/mesh.py", "parallel/multihost.py",
                 "parallel/launch.py", "ntt/dist.py", "ckks/dist_ckks.py",
                 "benchmarks/baseline_configs.py",
-                "benchmarks/scaling_virtual.py"):
+                "benchmarks/scaling_virtual.py", "bench.py"):
         assert f"fhe_fed_tpu_torch/{mod}" in names, mod
     banned = ("jax", "jaxlib", "optax", "fhe_fed_tpu", "benchmarks")
     for f in files:

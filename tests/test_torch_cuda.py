@@ -21,7 +21,7 @@ import pytest
 import torch
 
 import chip_smoke
-from fhe_fed_tpu_torch import cuda_lib, CKKS
+from fhe_fed_tpu_torch import bench, cuda_lib, CKKS
 from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
 from fhe_fed_tpu_torch.ntt import ntt as ntt_mod
@@ -806,3 +806,39 @@ def test_dist_round_on_card_equals_cpu(dev):
                        outs[1].view(torch.int32))
     want = vals[0] * 0.75 + vals[1] * 0.25
     assert np.max(np.abs(D.from_dist_coeff(outs[1]).numpy() - want)) < 1e-3
+
+
+@pytest.mark.parametrize("cap,chunks", [(8192, 204), (4096, 407)])
+def test_bench_headline_on_card(dev, cap, chunks):
+    """fhe_fed_tpu_torch.bench's headline on the card at the CNN's size
+    with blocks of 2 rounds and one rep: its chunk count, max_err <= 1e-6,
+    K1, K3 and K4 launched, and a block's output on the card."""
+    cuda_lib.launches.clear()
+    r = bench.headline(cap, "generator", dev, n_times=2, reps=1)
+    assert (r["config"]["chunks"], r["config"]["backend"]) == (chunks, "cuda")
+    assert r["max_err"] <= 1e-6
+    for k in ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+              "decode_fused"):
+        assert cuda_lib.launches[k] > 0, k
+    out = bench.run_block(chip_smoke.bench_setup(dev, cap), 9, 1)[3]
+    assert out.is_cuda and tuple(out.shape) == (chunks, 8192)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_bench_threefry_round_on_card_equals_cpu(dev, symmetric):
+    """A threefry bench round at 2 chunks: the ciphertexts, the aggregate
+    and the decrypt on the card equal the port's on the CPU bit for bit."""
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        _, params, ctx, sk, pk = bench.run_init(d)
+        values, _ = bench.make_clients(12_000, 3, params.ring_dim,
+                                       params.ring_dim, device=d)
+        c = bench.Cohort(ctx, sk, pk, values, [1.0 / 3] * 3, "threefry")
+        cts = bench.encrypt_rounds(c, bench.round_rngs(2, 1, "threefry", d),
+                                   symmetric)
+        aggs = bench.aggregate_rounds(c, cts)
+        got[d.type] = (cts[0].data, aggs[0].data,
+                       bench.decrypt_rounds(c, aggs)[0])
+    assert got["cuda"][2].is_cuda
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
