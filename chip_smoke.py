@@ -42,12 +42,13 @@ Phases (each raises on failure, so the script exits non-zero):
      at the bench configuration (batch 4096, 2^52, N 8192, dense): first
      the known answers on the card (threefry keygen(ctx, 0) equals the
      committed key files byte for byte, the KAT ciphertext digest), then
-     CKKS helpers loaded from a cryptodir of the committed keys run
-     3 x 1,663,370 values through encrypt -> computeWeightedAverage ->
-     decrypt in the symmetric, public-key and seeded_fresh modes and one
-     mixed FFTS + FFTC cohort (FFTS <= 0.51 x FFTC), fedavg_round fused
-     and staged, a streamed round at BERT-base size (109,482,240 values x
-     3, 14 slices of 1024 chunks), slot mode at 100,000 values, and
+     CKKS helpers (on the card their PRNG defaults to rbg) loaded from a
+     cryptodir of the committed keys run 3 x 1,663,370 values through
+     encrypt -> computeWeightedAverage -> decrypt in the symmetric,
+     public-key and seeded_fresh modes and one mixed FFTS + FFTC cohort
+     (FFTS <= 0.51 x FFTC), fedavg_round fused and staged, a streamed
+     round at BERT-base size (109,482,240 values x 3, 14 slices of 1024
+     chunks), slot mode at 100,000 values, and
      fhe_fedavg over three CNNOriginalFedAvg state_dicts (FULL, rate 0.1,
      the two conv layers) loaded back into a module and run forward; every
      result within 1e-6 of its plaintext reference;
@@ -166,8 +167,9 @@ Phases (each raises on failure, so the script exits non-zero):
  18. the bench path: fhe_fed_tpu_torch.bench.headline, the port of
      bench.py's round, at its default schedule (init twice from the
      committed keys, two warm-up blocks, 5 blocks of 16 rounds, 3
-     public-key and 3 fused blocks, medians, host clock) under the card's
-     torch.Generator, at 204 chunks (8192 values a chunk) and 407 (4096);
+     public-key and 3 fused blocks, medians, host clock) under rbg keys
+     (bench.py's choice; drawn by the card's Philox), at 204 chunks (8192
+     values a chunk) and 407 (4096);
      each result's JSON dict on a line of its own, max_err <= 1e-6. Then,
      at each packing, bench's phases timed with CUDA events beside the
      host-timed medians; one staged block of 16 rounds traced with
@@ -176,6 +178,18 @@ Phases (each raises on failure, so the script exits non-zero):
      forward bit-exact on the cohort encrypt's batch ((612 / 1221, 4,
      8192)) and the public-key encrypt's ((4, 3, 204 / 407, 4, 8192)),
      and K4 on the path's decrypt residues ((204 / 407, 4, 8192)).
+ 19. the rbg phase (utils/prng.py; run after phase 8), at the bench
+     configuration: the rbg key tree (key, split, fold_in, the Generator
+     seeds) on the card equal to the CPU's; the CKKS helpers on the card,
+     whose PRNG defaults to rbg, in the symmetric, public-key and
+     seeded_fresh modes over the CNN's 3 x 1,663,370 values within 1e-6,
+     the same seed giving the same bytes and another seed others, and a
+     ThresholdCKKS keygen ceremony and fused round under rbg within 1e-6;
+     the rbg samplers' statistics over 1224 x 8192 draws each (each limb's
+     uniform mean and variance, the ternary frequencies, the CBD mean and
+     variance 10), each within 5 standard errors; the API helpers'
+     encrypts (bytes and cohort) under prng="rbg" and "threefry" side by
+     side, CUDA events; one fhe_fed_tpu_torch.benchmarks.microprof run.
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
@@ -223,6 +237,7 @@ from fhe_fed_tpu_torch.benchmarks import attack_eval, baseline_configs
 from fhe_fed_tpu_torch.benchmarks import fedavg_demo
 from fhe_fed_tpu_torch.benchmarks import mkhe_bench, masking_bench
 from fhe_fed_tpu_torch.benchmarks import param_sweep, train_synth
+from fhe_fed_tpu_torch.benchmarks import microprof
 from fhe_fed_tpu_torch.data.synth import make_synth_images
 from fhe_fed_tpu_torch.fed import masking as M
 from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
@@ -230,7 +245,7 @@ from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.native import paillier
 from fhe_fed_tpu_torch.rns import modops, primes
-from fhe_fed_tpu_torch.utils import threefry
+from fhe_fed_tpu_torch.utils import prng, threefry
 
 ROOT = pathlib.Path(__file__).resolve().parent
 KEY_DIR = ROOT / "results" / "bench_keys_headline"
@@ -298,6 +313,8 @@ PATH_KERNELS = {   # the kernels each driven path must launch
                     "decode_fused"),
     "bench": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
               "decode_fused"),
+    "rbg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+            "decode_fused"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -358,6 +375,9 @@ DIST_ROUND_BOUND = 1e-3   # tests/test_dist_ckks.py:208
 PARTY_BOUND = 2e-3        # __graft_entry__.py:213
 # The bench path: bench.py's two packings, values a chunk -> chunks.
 BENCH_CHUNKS = {8192: 204, 4096: 407}
+RBG_SEEDS = (0, 7, 2024, 2 ** 62 + 12345)
+RBG_ROWS = 1224           # x 8192: ~10^7 draws for each sample statistic
+Z_BOUND = 5.0             # standard errors allowed for each statistic
 
 
 def card() -> str:
@@ -954,16 +974,18 @@ def check_known_answers(ctx) -> None:
                              f"{ctx.device}")
 
 
-def api_helpers(cryptodir: pathlib.Path, dev) -> dict:
-    """One CKKS helper per mode, loaded from `cryptodir`; the coefficient
-    modes dense-packed as the bench is."""
+def api_helpers(cryptodir: pathlib.Path, dev, seed: int = 1) -> dict:
+    """One CKKS helper per mode, loaded from `cryptodir`, with seeds seed
+    .. seed + 3 and the device's default PRNG (rbg on the card); the
+    coefficient modes dense-packed as the bench is."""
     kw = dict(batchSize=4096, scaleFactorBits=52, cryptodir=str(cryptodir),
               device=dev)
-    hs = {"symmetric": CKKS(dense_pack=True, symmetric=True, seed=1, **kw),
-          "public_key": CKKS(dense_pack=True, seed=2, **kw),
-          "seeded_fresh": CKKS(dense_pack=True, seeded_fresh=True, seed=3,
-                               **kw),
-          "slots": CKKS(packing="slots", seed=4, **kw)}
+    hs = {"symmetric": CKKS(dense_pack=True, symmetric=True, seed=seed,
+                            **kw),
+          "public_key": CKKS(dense_pack=True, seed=seed + 1, **kw),
+          "seeded_fresh": CKKS(dense_pack=True, seeded_fresh=True,
+                               seed=seed + 2, **kw),
+          "slots": CKKS(packing="slots", seed=seed + 3, **kw)}
     for h in hs.values():
         h.loadCryptoParams()
     return hs
@@ -2317,12 +2339,12 @@ def multidevice_timings(meshes, pod, dst, party, gpu: str) -> None:
 def bench_setup(dev, cap: int) -> bench.Cohort:
     """bench's cohort at `cap` values a chunk: its context and the
     committed keys (bench.run_init), the CNN's 3 x 1,663,370 values, the
-    Generator PRNG."""
+    rbg PRNG (bench's default)."""
     _, params, ctx, sk, pk = bench.run_init(dev)
     values, _ = bench.make_clients(CNN_PARAMS, N_CLIENTS, params.ring_dim,
                                    cap, device=dev)
     return bench.Cohort(ctx, sk, pk, values, [1.0 / N_CLIENTS] * N_CLIENTS,
-                        "generator")
+                        "rbg")
 
 
 def check_bench(results: dict) -> None:
@@ -2340,13 +2362,14 @@ def check_bench(results: dict) -> None:
                                  f"{MAX_ERR}")
 
 
-def bench_event_ms(c: bench.Cohort, gen) -> dict:
+def bench_event_ms(c: bench.Cohort) -> dict:
     """bench's phases under CUDA events (cuda_ms over N_TIMES calls after
-    a warm-up), in its units: ms a client for the encrypts, a round for
-    the others. Unlike a bench block, each call's result is freed before
-    the next."""
+    a warm-up) with one round key of the cohort's PRNG, in its units: ms a
+    client for the encrypts, a round for the others. Unlike a bench block,
+    each call's result is freed before the next."""
     k = c.values.shape[0]
     reps = bench.N_TIMES
+    gen = bench.round_rngs(7, 1, c.prng, c.values.device)[0]
     ct = ops.encrypt_symmetric_stacked(c.ctx, c.sk, c.values, gen)
     agg = ops.weighted_sum(c.ctx, ct, c.weights)
     return {
@@ -2425,14 +2448,14 @@ def check_bench_kernels(c: bench.Cohort, gen, reps=10) -> list[dict]:
 def bench_path(dev, gpu: str, gen, prof_dir: pathlib.Path | None
                ) -> tuple[collections.Counter, list[dict]]:
     """The bench path under drive() (bench.headline at its default
-    schedule, Generator PRNG, at both packings) and its checks, each
+    schedule, rbg PRNG, at both packings) and its checks, each
     headline's JSON dict on a line of its own; then at each packing the
     phases under CUDA events beside the host-timed medians, one staged
     block traced under each PRNG and the path's kernel records. Returns
     the path's launch counts and records."""
     t0 = time.perf_counter()
     results, counts = drive("bench", lambda: {
-        cap: bench.headline(cap, "generator", dev) for cap in BENCH_CHUNKS})
+        cap: bench.headline(cap, "rbg", dev) for cap in BENCH_CHUNKS})
     check_bench(results)
     for r in results.values():
         print(json.dumps(r), flush=True)
@@ -2443,7 +2466,7 @@ def bench_path(dev, gpu: str, gen, prof_dir: pathlib.Path | None
         c = bench_setup(dev, cap)
         host = results[cap]["phases"]
         phases = {k: dict(host_ms=1e3 * host[k], event_ms=ms)
-                  for k, ms in bench_event_ms(c, gen).items()}
+                  for k, ms in bench_event_ms(c).items()}
         print("bench_vs_events " + json.dumps(dict(
             chunks=chunks, card=gpu, phases=phases)), flush=True)
         for prng in bench.PRNGS:
@@ -2456,6 +2479,181 @@ def bench_path(dev, gpu: str, gen, prof_dir: pathlib.Path | None
         recs += krecs
         del c
     return counts, recs
+
+
+# ---------------------------------------------------------------------------
+# The rbg phase: the port's rbg keys (utils/prng.py), the default PRNG of
+# CKKS and ThresholdCKKS on the card
+# ---------------------------------------------------------------------------
+
+def check_rbg_key_tree(dev) -> None:
+    """On dev: rbg key, split (nested, batched) and fold_in equal the CPU's,
+    and so do the Generator seeds they give; bits drawn on dev are
+    reproducible for one key and differ between keys."""
+    cpu = torch.device("cpu")
+    for seed in RBG_SEEDS:
+        got, want = (prng.key(seed, "rbg", d) for d in (dev, cpu))
+        pairs = [(got, want), (prng.split(got, 3), prng.split(want, 3)),
+                 (prng.fold_in(got, 0x5eed), prng.fold_in(want, 0x5eed)),
+                 (prng.split(prng.split(got, 3), 2),
+                  prng.split(prng.split(want, 3), 2))]
+        for g, w in pairs:
+            if g.device != dev or not torch.equal(g.cpu(), w):
+                raise AssertionError(f"rbg key tree on {dev} differs from "
+                                     f"the CPU's (seed {seed})")
+        if prng.seeds(prng.split(got, 3)) != prng.seeds(prng.split(want, 3)):
+            raise AssertionError(f"rbg Generator seeds on {dev} differ")
+    k1, k2 = prng.split(prng.key(1, "rbg", dev)).unbind(0)
+    a = prng.bits(k1, (4, 8192))
+    if not (a.device == dev and torch.equal(a, prng.bits(k1, (4, 8192)))
+            and not torch.equal(a, prng.bits(k2, (4, 8192)))):
+        raise AssertionError(f"rbg bits on {dev}: not reproducible per key")
+
+
+def _z_mean_var(x: torch.Tensor, mean: float, var: float,
+                mu4: float) -> tuple[float, float]:
+    """z-scores of the sample mean and variance (about the true mean) of
+    x against a distribution's mean, variance and fourth central moment."""
+    x = x.double().reshape(-1)
+    n = x.numel()
+    m = float(x.mean())
+    s2 = float(((x - mean) ** 2).mean())
+    return ((m - mean) / float(np.sqrt(var / n)),
+            (s2 - var) / float(np.sqrt((mu4 - var * var) / n)))
+
+
+def rbg_sample_z(dev, moduli, n: int, rows: int) -> dict:
+    """z-scores of the rbg samplers' statistics under keys split from
+    key(2024, "rbg") on dev: the uniform residues ((rows / L, L, n), each
+    limb's mean (q-1)/2 and variance (q^2-1)/12), the ternary frequencies
+    (1/3 each) over (rows, n), the CBD mean 0 and variance 10 over
+    (rows, n) (fourth central moment 20/2 + 3 * 20 * 19 / 4 = 295). Every
+    sample must also lie in its support."""
+    k_u, k_t, k_c = prng.split(prng.key(2024, "rbg", dev), 3).unbind(0)
+    z = {}
+    u = keys.uniform_mod_q_key(k_u, (rows // len(moduli), len(moduli), n),
+                               moduli)
+    for limb, q in enumerate(moduli):
+        x = u[:, limb]
+        if not (x.device == dev and int(x.min()) >= 0
+                and int(x.max()) < q):
+            raise AssertionError(f"uniform residues of limb {limb} outside "
+                                 f"[0, {q})")
+        z[f"uniform_mean_{limb}"], z[f"uniform_var_{limb}"] = _z_mean_var(
+            x, (q - 1) / 2, (q * q - 1) / 12, float(q) ** 4 / 80)
+    t = keys.ternary_coeffs_key(k_t, (rows, n))
+    if int(t.min()) != -1 or int(t.max()) != 1:
+        raise AssertionError("ternary samples outside {-1, 0, 1}")
+    draws = t.numel()
+    for v in (-1, 0, 1):
+        z[f"ternary_{v}"] = ((int((t == v).sum()) - draws / 3)
+                             / float(np.sqrt(draws * 2 / 9)))
+    e = keys.cbd_coeffs_key(k_c, (rows, n))
+    if int(e.abs().max()) > 20:
+        raise AssertionError("CBD samples outside [-20, 20]")
+    z["cbd_mean"], z["cbd_var"] = _z_mean_var(e, 0.0, 10.0, 295.0)
+    return z
+
+
+def rbg_helpers(cryptodir: pathlib.Path, dev, seed: int = 21) -> dict:
+    """api_helpers' coefficient modes on dev, with the device's default
+    PRNG: each must be rbg."""
+    hs = api_helpers(cryptodir, dev, seed)
+    del hs["slots"]
+    bad = {m: h.prng for m, h in hs.items() if h.prng != "rbg"}
+    if bad:
+        raise AssertionError(f"CKKS on {dev} did not default to rbg: {bad}")
+    return hs
+
+
+def run_rbg_path(hs: dict, twins: dict, others: dict, th: ThresholdCKKS,
+                 cnn_vecs) -> tuple[dict, dict]:
+    """Each rbg helper's bytes round over the CNN's vectors, its twin (the
+    same seed) and another seed's helper on client 0, and a ThresholdCKKS
+    keygen ceremony and fused round under rbg. Returns ({result: decrypted
+    output}, {mode: (blob, twin's blob, other seed's blob)})."""
+    n = cnn_vecs[0].size
+    outs, blobs = {}, {}
+    for mode, h in hs.items():
+        b = [h.encrypt(v) for v in cnn_vecs]
+        outs[f"bytes_{mode}"] = h.decrypt(h.computeWeightedAverage(
+            b, API_WEIGHTS), n)
+        blobs[mode] = (b[0], twins[mode].encrypt(cnn_vecs[0]),
+                       others[mode].encrypt(cnn_vecs[0]))
+    th.genCryptoContextAndKeyGen()
+    outs["threshold_round_fused"] = th.fedavg_round(cnn_vecs, API_WEIGHTS)
+    torch.cuda.synchronize()
+    return outs, blobs
+
+
+def check_rbg(outs: dict, blobs: dict, want: np.ndarray) -> dict:
+    """Every result within MAX_ERR; the same seed gave the same bytes, and
+    another seed other bytes."""
+    for mode, (blob, twin, other) in blobs.items():
+        if blob != twin or blob == other:
+            raise AssertionError(f"rbg {mode}: the same seed gave other "
+                                 f"bytes, or another seed the same")
+    errs = {}
+    for name, got in outs.items():
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"rbg {name}: bad output {got.shape}")
+        errs[name] = float(np.max(np.abs(got - want)))
+    bad = {k: e for k, e in errs.items() if not e <= MAX_ERR}
+    if bad:
+        raise AssertionError(f"rbg: max_err above {MAX_ERR}: {bad}")
+    return errs
+
+
+def rbg_path(dev, gpu: str, params, cnn_vecs, cnn_want: np.ndarray
+             ) -> collections.Counter:
+    """The rbg phase at the bench configuration: the key tree on the card
+    against the CPU's; under drive(), the rbg helpers' bytes rounds in the
+    symmetric, public-key and seeded_fresh modes (reproducible per seed)
+    and a ThresholdCKKS round; the samplers' statistics over ~10^7 draws;
+    then the API helpers' encrypts under prng="rbg" and "threefry" side by
+    side (CUDA events), and one microprof run. Returns the launches."""
+    t0 = time.perf_counter()
+    check_rbg_key_tree(dev)
+    print(f"rbg key tree on {dev} == the CPU's (seeds {list(RBG_SEEDS)}): "
+          f"ok", flush=True)
+    root = ROOT / "build" / "rbg"
+    d = write_cryptodir(params, root / "cryptodir")
+    hs, twins = rbg_helpers(d, dev), rbg_helpers(d, dev)
+    others = rbg_helpers(d, dev, seed=31)
+    th = threshold_helper(root / "threshold", dev, seed=23)
+    if th.prng != "rbg":
+        raise AssertionError(f"ThresholdCKKS on {dev}: prng {th.prng}")
+    (outs, blobs), counts = drive("rbg", lambda: run_rbg_path(
+        hs, twins, others, th, cnn_vecs))
+    errs = check_rbg(outs, blobs, cnn_want)
+    print(f"rbg path: max_err {json.dumps(errs)} launches {counts}",
+          flush=True)
+    z = rbg_sample_z(dev, params.moduli[:params.chain_len], params.ring_dim,
+                     RBG_ROWS)
+    print("rbg_sample_z " + json.dumps(dict(
+        draws_each=RBG_ROWS * params.ring_dim, bound=Z_BOUND, z=z)),
+        flush=True)
+    bad = {k: v for k, v in z.items() if not abs(v) <= Z_BOUND}
+    if bad:
+        raise AssertionError(f"rbg sample statistics beyond {Z_BOUND} "
+                             f"standard errors: {bad}")
+    packed = hs["symmetric"].pack_cohort(cnn_vecs)
+    for mode in ("symmetric", "public_key"):
+        for impl in prng.IMPLS:
+            h = CKKS(batchSize=4096, scaleFactorBits=52, cryptodir=str(d),
+                     dense_pack=True, symmetric=mode == "symmetric", seed=24,
+                     device=dev, prng=impl)
+            h.loadCryptoParams()
+            enc = cuda_ms(lambda: h.encrypt(cnn_vecs[0]), 3)
+            cohort = cuda_ms(lambda: h.encrypt_cohort(packed), 3)
+            print(f"phase api_encrypt_{mode}_{impl}_ms: {enc:.4f} "
+                  f"encrypt_cohort_{mode}_{impl}_ms: {cohort:.4f} ({gpu})",
+                  flush=True)
+    rec = microprof.run(dev)
+    print("microprof " + json.dumps(rec), flush=True)
+    print(f"rbg phase: wall_s {time.perf_counter() - t0:.3f} ({gpu})",
+          flush=True)
+    return counts
 
 
 def main() -> int:
@@ -2671,6 +2869,7 @@ def main() -> int:
               f"{us['threefry_sampling'] / us['api_encrypt']:.4f} ({gpu})",
               flush=True)
 
+    rbg_counts = rbg_path(dev, gpu, params, cnn_vecs, cnn_want)
     thr_counts, thr_recs = threshold_path(dev, gpu, cnn_vecs, cnn_want,
                                           args.profile)
     recs += thr_recs
@@ -2695,7 +2894,7 @@ def main() -> int:
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
               mask_counts, deep_counts, ring_counts, zoo_counts,
               sweep_counts, attack_counts, drivers_counts, md_counts,
-              bench_counts):
+              bench_counts, rbg_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

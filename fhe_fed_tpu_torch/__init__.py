@@ -7,8 +7,10 @@ selective encryption (`fhe_fedavg`, `plain_fedavg`), on the RNS / NTT /
 CKKS engine: context and keys, encrypt (secret-key, public-key, seeded),
 the weighted sum, decrypt, the fused round, key switching (ct x ct
 multiply with relinearisation, Galois rotations, EvalSum), rescale, slot
-packing, the FFTC / FFTP / FFTS / FFTK wire formats, and the threefry PRNG
-of jax.random (utils/threefry.py), so a seed gives the JAX package's bytes.
+packing, the FFTC / FFTP / FFTS / FFTK wire formats, the threefry PRNG of
+jax.random (utils/threefry.py), so a seed gives the JAX package's bytes,
+and its rbg keys (utils/prng.py: JAX's key tree, leaves drawn by the
+device's generator), the helpers' default on the card.
 The two other secure-aggregation schemes: threshold CKKS (`ThresholdCKKS`,
 ckks/threshold.py; no party holds the joint secret key) and the Paillier
 masking scheme (`Masking`, fed/masking.py; its offline Paillier runs on the
@@ -19,7 +21,7 @@ inversion, gradient-sensitivity masks, similarity metrics; the first path
 with gradients, in full float32, utils/precision.py) and the benchmark
 drivers (benchmarks/: model_bench, selective_bench, train_synth,
 param_sweep, attack_eval, fedavg_demo, mkhe_bench, masking_bench,
-baseline_configs, scaling_virtual). Multi-device aggregation runs on
+baseline_configs, scaling_virtual, microprof). Multi-device aggregation runs on
 torch.distributed, one process a device (parallel/: the clients x chunks
 round; ntt/dist.py and ckks/dist_ckks.py: the limb- and
 coefficient-sharded NTT and the round in its layout). Module paths mirror

@@ -5,7 +5,7 @@ clients at the production crypto point (batch 4096, scale 2^52: N 8192,
 package's bench.py, with its schedule, accounting and JSON line:
 
     python -m fhe_fed_tpu_torch.bench [--values-per-ct {8192,4096}]
-        [--prng {generator,threefry}] [--device cuda]
+        [--prng {rbg,threefry}] [--device cuda]
 
   * init: make_params -> make_context -> the committed key fixtures
     (results/bench_keys_headline/key-{private,public}.txt) read by the
@@ -29,16 +29,17 @@ The payload packs `--values-per-ct` values into each chunk of N = 8192
 coefficients: 8192 (default, dense) gives 204 chunks, 4096 gives 407 (the
 JAX script's FHE_FED_BENCH_DENSE=0).
 
-PRNG. bench.py draws each round's key from jax.random.key(tag,
-impl="rbg"), XLA's device generator, chosen for speed and not reproducible
-across backends. Its counterpart here is the card's own torch.Generator
-(Philox, `--prng generator`, the default): seeded with the tag once per
-block, drawing inside the timed encrypt as rbg's expansion does; the same
-tag and call order give the same stream, which is not the JAX one.
-`--prng threefry` splits threefry keys (utils/threefry.py) before the
-timer, the keys jax.random.split(jax.random.key(tag), rounds) gives, so
-every ciphertext is the JAX package's bit for bit. The JSON's config says
-which stream ran.
+PRNG. bench.py draws each round's key from
+jax.random.split(jax.random.key(tag, impl="rbg"), rounds), XLA's device
+generator, chosen for speed and not reproducible across backends. So does
+this one (`--prng rbg`, the default), before the timer, with the port's
+rbg keys (utils/prng.py): the key tree is JAX's bit for bit, and each
+leaf of the encrypt draws from the card's Philox, seeded from its key,
+inside the timed encrypt as rbg's expansion does. The stream is
+reproducible per tag, and is not the JAX one. `--prng threefry` splits
+threefry keys, the keys jax.random.split(jax.random.key(tag), rounds)
+gives, so every ciphertext is the JAX package's bit for bit. The JSON's
+config says which stream ran.
 
 The numbers are seconds, not rounded: at the card's speed bench.py's four
 decimals would leave the aggregate one significant digit.
@@ -71,7 +72,7 @@ from .ckks import keys as K
 from .ckks import ops as O
 from .ckks import params as P
 from .ckks import serial as S
-from .utils import threefry
+from .utils import prng as prng_mod
 
 CNN_PARAMS = 1_663_370
 N_CLIENTS = 3
@@ -82,7 +83,7 @@ BASELINE_S = 2.456   # the reference's CPU/PALISADE round (BASELINE.md)
 METRIC = "fedavg_cnn1.66M_3clients_enc_agg_dec"
 PARAMS = dict(batch=4096, scale_bits=52, mult_depth=1)
 VALUES_PER_CT = (8192, 4096)
-PRNGS = ("generator", "threefry")
+PRNGS = ("rbg", "threefry")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KEY_DIR = ROOT / "results" / "bench_keys_headline"
@@ -158,16 +159,11 @@ def make_clients(n_params: int, n_clients: int, n: int, cap: int, seed=0,
 
 
 def round_rngs(tag: int, rounds: int, prng: str, device) -> list:
-    """One rng per round, made before the timer: threefry keys split from
-    key(tag), or `rounds` references to one torch.Generator seeded with
-    `tag` (its draws happen inside the timed encrypt)."""
-    if prng == "threefry":
-        return list(threefry.split(threefry.key(tag, device), rounds))
-    if prng != "generator":
+    """One key per round, made before the timer, as bench.py:164:
+    split(key(tag, prng), rounds) on `device`."""
+    if prng not in PRNGS:
         raise ValueError(f"prng {prng!r}: expected one of {PRNGS}")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(tag)
-    return [gen] * rounds
+    return list(prng_mod.split(prng_mod.key(tag, prng, device), rounds))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,7 +237,7 @@ def _max_err(out: torch.Tensor, want: np.ndarray, cap: int) -> float:
     return float(np.max(np.abs(flat - want)))
 
 
-def headline(values_per_ct: int = 8192, prng: str = "generator",
+def headline(values_per_ct: int = 8192, prng: str = "rbg",
              device="cuda", n_params: int = CNN_PARAMS,
              n_times: int = N_TIMES, reps: int = REPS,
              keygen_s: float | None = None) -> dict:
@@ -323,8 +319,9 @@ def main(argv=None) -> dict | None:
                     help="values packed per ciphertext chunk: 8192 (dense, "
                          "204 chunks) or 4096 (407 chunks)")
     ap.add_argument("--prng", choices=PRNGS, default=PRNGS[0],
-                    help="the card's torch.Generator, or threefry keys "
-                         "(the JAX package's ciphertexts bit for bit)")
+                    help="rbg keys drawn by the card's Philox (bench.py's "
+                         "choice), or threefry keys (the JAX package's "
+                         "ciphertexts bit for bit)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--keygen", action="store_true",
                     help="only write the key fixtures (main runs this in a "

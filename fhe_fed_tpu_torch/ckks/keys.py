@@ -11,6 +11,11 @@ with the same distributions:
     fhe_fed_tpu.ckks.keys line for line, so they give the JAX package's
     samples bit for bit; a batch of keys (..., 2) samples in one pass.
 
+The `*_key` forms take a key of either implementation (utils/prng.py): a
+threefry key goes to the `*_tf` form; an rbg key, the JAX package's
+sampler on its accelerator, draws with the Generator form, one Generator
+per key of the batch (prng.draw), on the key's device.
+
 `keygen` is a sampling step followed by the deterministic `keygen_core`,
 which takes the samples as arguments. Given an int seed it splits
 threefry key(seed) as the JAX package's keygen does and reproduces its
@@ -27,7 +32,7 @@ import torch
 
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
-from ..utils import threefry
+from ..utils import prng, threefry
 from .params import CkksContext
 
 _CBD_BITS = 20  # centered binomial with variance _CBD_BITS / 2
@@ -139,6 +144,28 @@ def cbd_coeffs_tf(key: torch.Tensor, shape) -> torch.Tensor:
     a = threefry.bits(k1, shape).bitwise_and_(mask)
     b = threefry.bits(k2, shape).bitwise_and_(mask)
     return (_popcount20(a) - _popcount20(b)).to(torch.int32)
+
+
+def uniform_mod_q_key(key: torch.Tensor, shape, moduli) -> torch.Tensor:
+    """uniform_mod_q under a key of either implementation: residues
+    (*key batch, *shape) in [0, q_l), int32."""
+    if prng.impl_of(key) == "threefry":
+        return uniform_mod_q_tf(key, shape, moduli)
+    return prng.draw(key, shape, lambda g, s: uniform_mod_q(g, s, moduli))
+
+
+def ternary_coeffs_key(key: torch.Tensor, shape) -> torch.Tensor:
+    """ternary_coeffs under a key of either implementation."""
+    if prng.impl_of(key) == "threefry":
+        return ternary_coeffs_tf(key, shape)
+    return prng.draw(key, shape, ternary_coeffs)
+
+
+def cbd_coeffs_key(key: torch.Tensor, shape) -> torch.Tensor:
+    """cbd_coeffs under a key of either implementation."""
+    if prng.impl_of(key) == "threefry":
+        return cbd_coeffs_tf(key, shape)
+    return prng.draw(key, shape, cbd_coeffs)
 
 
 def lift_signed(coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

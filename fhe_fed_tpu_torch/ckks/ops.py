@@ -6,9 +6,11 @@ sampling step followed by a deterministic core that takes the samples as
 arguments. The step draws from `rng`, which is either
 
   * a torch.Generator: the port's own streams, or
-  * a threefry key tensor (2,) (utils/threefry.py): the key splits of the
-    JAX function of the same name, line for line, so the ciphertext is
-    the JAX package's bit for bit.
+  * a key (utils/prng.py), split as the JAX function of the same name
+    splits it, line for line: a threefry key (2,) gives the JAX package's
+    ciphertext bit for bit; an rbg key (4,), the JAX package's sampler on
+    its accelerator, draws its leaves from Generators on the key's device
+    (keys.*_key).
 
 Kernels on the path: the NTT (K1 or K2, via ntt/ntt.py) in encrypt,
 decrypt and rescale, the weighted sum (K3, ckks/pallas_agg.py) and the
@@ -25,12 +27,12 @@ import torch
 
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
-from ..utils import threefry
+from ..utils import prng
 from . import encoding, pallas_agg
 from .params import CkksContext
 from .keys import (SecretKey, PublicKey, uniform_mod_q, ternary_coeffs,
-                   cbd_coeffs, lift_signed, uniform_mod_q_tf,
-                   ternary_coeffs_tf, cbd_coeffs_tf, uniform_mod_q_xor2)
+                   cbd_coeffs, lift_signed, uniform_mod_q_key,
+                   ternary_coeffs_key, cbd_coeffs_key, uniform_mod_q_xor2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +73,7 @@ def _tables(ctx: CkksContext, live: int):
 
 
 def _per_key_shape(key: torch.Tensor, shape) -> tuple:
-    """The shape each key of a batch (..., 2) draws: `shape` without the
+    """The shape each key of a batch (..., W) draws: `shape` without the
     leading dimensions that the key batch covers."""
     b = key.dim() - 1
     if tuple(key.shape[:-1]) != tuple(shape[:b]):
@@ -90,9 +92,9 @@ def _sym_samples(ctx: CkksContext, rng, shape):
         return (uniform_mod_q(rng, (*lead, L, n), moduli),
                 cbd_coeffs(rng, tuple(shape)))
     *lead, n = _per_key_shape(rng, shape)
-    k_a, k_e = threefry.split(rng).unbind(-2)
-    return (uniform_mod_q_tf(k_a, (*lead, L, n), moduli),
-            cbd_coeffs_tf(k_e, (*lead, n)))
+    k_a, k_e = prng.split(rng).unbind(-2)
+    return (uniform_mod_q_key(k_a, (*lead, L, n), moduli),
+            cbd_coeffs_key(k_e, (*lead, n)))
 
 
 def _pk_samples(rng, shape):
@@ -102,14 +104,14 @@ def _pk_samples(rng, shape):
         return (ternary_coeffs(rng, shape), cbd_coeffs(rng, shape),
                 cbd_coeffs(rng, shape))
     per = _per_key_shape(rng, shape)
-    k_u, k_e0, k_e1 = threefry.split(rng, 3).unbind(-2)
-    return (ternary_coeffs_tf(k_u, per), cbd_coeffs_tf(k_e0, per),
-            cbd_coeffs_tf(k_e1, per))
+    k_u, k_e0, k_e1 = prng.split(rng, 3).unbind(-2)
+    return (ternary_coeffs_key(k_u, per), cbd_coeffs_key(k_e0, per),
+            cbd_coeffs_key(k_e1, per))
 
 
 def _split_clients(rng, k: int):
     """A stacked encrypt gives client i the key split(key, K)[i]."""
-    return rng if isinstance(rng, torch.Generator) else threefry.split(rng, k)
+    return rng if isinstance(rng, torch.Generator) else prng.split(rng, k)
 
 
 def _sym_c0(ctx: CkksContext, sk: SecretKey, values: torch.Tensor,
@@ -162,11 +164,13 @@ def encrypt_symmetric_seeded(ctx: CkksContext, sk: SecretKey,
                              values: torch.Tensor, rng_key: torch.Tensor,
                              scale: float | None = None) -> SeededCiphertext:
     """Secret-key encrypt of (chunks, N) f32 with c1 elided. The wire seed
-    is bits(key, (4,)), the error key fold_in(key, 0x5eed); `a` is expanded
-    from the seed as expand_seeded does."""
+    is bits(key, (4,)), the error key fold_in(key, 0x5eed), under the key's
+    implementation; `a` is expanded from the seed as expand_seeded does,
+    from the threefry pair of its halves whatever the key, so any server
+    expands it alike."""
     scale = _scale(ctx, scale)
-    seed = threefry.bits(rng_key, (4,))
-    e = cbd_coeffs_tf(threefry.fold_in(rng_key, 0x5eed), values.shape)
+    seed = prng.bits(rng_key, (4,))
+    e = cbd_coeffs_key(prng.fold_in(rng_key, 0x5eed), values.shape)
     chunks, n = values.shape
     a_hat = uniform_mod_q_xor2(seed[:2], seed[2:],
                                (chunks, ctx.params.chain_len, n),

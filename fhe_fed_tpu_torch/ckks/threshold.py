@@ -14,13 +14,16 @@ the joint s with payload P*s_i; round 2: each party multiplies both rows
 of the combined round-1 key by s_i and adds fresh noise; the sum is a key
 for s**2 -> s).
 
-Random streams are threefry keys (utils/threefry.py): every ceremony
-stream is fold_in(fold_in(root, tag), party), and every split follows the
-JAX function of the same name, so a seed gives the JAX package's residues
-bit for bit. The per-party functions are the protocol (what each party
-computes and publishes); the batched ceremonies compute the same residues
-with the party axis stacked: one NTT batch and one Shoup multiply over all
-parties, Shoup companions computed on the device.
+Random streams are keys (utils/prng.py): every ceremony stream is
+fold_in(fold_in(root, tag), party), and every split follows the JAX
+function of the same name, so a seed gives the JAX package's residues bit
+for bit. An int root seed and the public common seed are threefry keys,
+as `jax.random.key(seed)` is on any device; a caller's key (the helper's
+session key, a decryption's smudging keys) may be rbg, whose streams then
+follow it (keys.*_key). The per-party functions are the protocol (what
+each party computes and publishes); the batched ceremonies compute the
+same residues with the party axis stacked: one NTT batch and one Shoup
+multiply over all parties, Shoup companions computed on the device.
 
 Kernels on the path: the NTT (K1 / K2 via ntt/ntt.py) for key and smudging
 noise and the fusion INTT, the weighted sum (K3, via ops._aggregate) in
@@ -36,10 +39,10 @@ import torch
 
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
-from ..utils import threefry
+from ..utils import prng, threefry
 from .params import CkksContext
-from .keys import (SecretKey, PublicKey, uniform_mod_q_tf, ternary_coeffs_tf,
-                   cbd_coeffs_tf, lift_signed)
+from .keys import (SecretKey, PublicKey, uniform_mod_q_tf, uniform_mod_q_key,
+                   ternary_coeffs_key, cbd_coeffs_key, lift_signed)
 from . import encoding
 from . import ops as ckks_ops
 from . import keyswitch as ks_mod
@@ -57,27 +60,28 @@ _TAG_RELIN_R1, _TAG_RELIN_R2 = 3, 4
 
 def _root_key(seed, device) -> torch.Tensor:
     """An int seed (tests, benchmarks) -> threefry key(seed) on `device`; a
-    key tensor (2,) keeps all its bits. Single-process keygen is a
-    simulation either way: a deployment runs the per-party functions on
-    separate machines, so no process holds more than one share."""
+    key tensor (2,) or (4,) keeps all its bits and its implementation.
+    Single-process keygen is a simulation either way: a deployment runs the
+    per-party functions on separate machines, so no process holds more
+    than one share."""
     if isinstance(seed, (int, np.integer)):
         return threefry.key(seed, device)
     return seed.to(device)
 
 
 def _stream(root: torch.Tensor, tag: int, i: int) -> torch.Tensor:
-    return threefry.fold_in(threefry.fold_in(root, tag), i)
+    return prng.fold_in(prng.fold_in(root, tag), i)
 
 
 def _streams(root: torch.Tensor, tag: int, n: int) -> torch.Tensor:
-    """The streams of parties 0 .. n-1 as one key batch (n, 2)."""
+    """The streams of parties 0 .. n-1 as one key batch (n, W)."""
     return torch.stack([_stream(root, tag, i) for i in range(n)])
 
 
 def _noise_hat(ctx: CkksContext, keys: torch.Tensor, shape) -> torch.Tensor:
     """NTT(lift(cbd(key, shape))) over all L limbs: (*keys batch, *shape[:-1],
     L, N), one NTT batch."""
-    return ntt_mod.ntt(lift_signed(cbd_coeffs_tf(keys, shape), ctx.q),
+    return ntt_mod.ntt(lift_signed(cbd_coeffs_key(keys, shape), ctx.q),
                        ctx.tables)
 
 
@@ -109,7 +113,7 @@ def _common_rows(ctx: CkksContext, common_seed: int) -> torch.Tensor:
 def party_secret(ctx: CkksContext, rng_key: torch.Tensor) -> SecretKey:
     """One party's additive share s_i (ternary, all limbs)."""
     s_hat = ntt_mod.ntt(
-        lift_signed(ternary_coeffs_tf(rng_key, (ctx.ring_dim,)), ctx.q),
+        lift_signed(ternary_coeffs_key(rng_key, (ctx.ring_dim,)), ctx.q),
         ctx.tables)
     return SecretKey(s=s_hat, s_shoup=_shoup(ctx, s_hat))
 
@@ -117,9 +121,9 @@ def party_secret(ctx: CkksContext, rng_key: torch.Tensor) -> SecretKey:
 def init_public_key(ctx: CkksContext, sk: SecretKey,
                     rng_key: torch.Tensor) -> PublicKey:
     """Party 0: pk_0 = (-a*s_0 + e_0, a)."""
-    k_a, k_e = threefry.split(rng_key).unbind(-2)
-    a = uniform_mod_q_tf(k_a, (ctx.num_limbs, ctx.ring_dim),
-                         ctx.params.moduli)
+    k_a, k_e = prng.split(rng_key).unbind(-2)
+    a = uniform_mod_q_key(k_a, (ctx.num_limbs, ctx.ring_dim),
+                          ctx.params.moduli)
     return _extend(ctx, a, None, sk, k_e)
 
 
@@ -144,13 +148,12 @@ def _extend(ctx, a, b_prev, sk, k_e) -> PublicKey:
 def multiparty_keygen(ctx: CkksContext, n_parties: int, seed=0
                       ) -> tuple[list[SecretKey], PublicKey]:
     """The whole ceremony, party by party: the shares and the joint public
-    key. `seed` is an int or a threefry key (all its bits reach the
-    shares)."""
+    key. `seed` is an int or a key (all its bits reach the shares)."""
     root = _root_key(seed, ctx.device)
     sks = [party_secret(ctx, _stream(root, _TAG_SECRET, i))
            for i in range(n_parties)]
-    a = uniform_mod_q_tf(_stream(root, _TAG_PK_A, 0),
-                         (ctx.num_limbs, ctx.ring_dim), ctx.params.moduli)
+    a = uniform_mod_q_key(_stream(root, _TAG_PK_A, 0),
+                          (ctx.num_limbs, ctx.ring_dim), ctx.params.moduli)
     pk = _extend(ctx, a, None, sks[0], _stream(root, _TAG_PK_NOISE, 0))
     for i in range(1, n_parties):
         pk = extend_public_key(ctx, pk, sks[i],
@@ -168,9 +171,9 @@ def _smudge(ctx: CkksContext, rng_key: torch.Tensor, chunks: int,
     live, N). cbd * 2**20 + cbd stays below 2**31 in magnitude; its residue
     takes the sign of the divisor (torch.remainder, as the JAX `%`)."""
     n = ctx.ring_dim
-    k1, k2 = threefry.split(rng_key).unbind(-2)
-    e = (cbd_coeffs_tf(k1, (chunks, n)).to(torch.int64)
-         * (1 << (_SMUDGE_BITS // 2)) + cbd_coeffs_tf(k2, (chunks, n)))
+    k1, k2 = prng.split(rng_key).unbind(-2)
+    e = (cbd_coeffs_key(k1, (chunks, n)).to(torch.int64)
+         * (1 << (_SMUDGE_BITS // 2)) + cbd_coeffs_key(k2, (chunks, n)))
     r = torch.remainder(e[..., None, :], ctx.q[:live, None]).to(_I32)
     return ntt_mod.ntt(r, ctx.tables.slice_limbs(0, live))
 
@@ -230,7 +233,7 @@ def partial_galois_key(ctx: CkksContext, sk: SecretKey, g: int,
     key = ks_mod.make_kswitch_key_core(
         ctx, sk, ks_mod.automorphism(sk.s, n, g),
         _common_rows(ctx, common_seed),
-        cbd_coeffs_tf(rng_key, (ctx.params.chain_len, n)))
+        cbd_coeffs_key(rng_key, (ctx.params.chain_len, n)))
     return dataclasses.replace(key, b_shoup=None, a_shoup=None)
 
 
@@ -246,7 +249,7 @@ def partial_relin_round2(ctx: CkksContext, sk: SecretKey,
     """Round-2 share: both rows of the combined round-1 key times s_i, plus
     fresh noise (k0 for b, k1 for a)."""
     qb = ctx.q[:, None]
-    e0, e1 = _noise_hat(ctx, threefry.split(rng_key),
+    e0, e1 = _noise_hat(ctx, prng.split(rng_key),
                         (ctx.params.chain_len, ctx.ring_dim))
     b = modops.add_mod(
         modops.mul_mod_shoup(d_joint.b, sk.s[None], sk.s_shoup[None], qb),
@@ -317,7 +320,7 @@ class PartySecrets:
 
 
 def stack_keys(keys) -> torch.Tensor:
-    """A list of threefry keys (2,) -> a key batch (P, 2)."""
+    """A list of keys (W,) of one implementation -> a key batch (P, W)."""
     return torch.stack(list(keys))
 
 
@@ -329,13 +332,13 @@ def multiparty_keygen_batched(ctx: CkksContext, n_parties: int, seed=0
     root = _root_key(seed, ctx.device)
     n, L = ctx.ring_dim, ctx.num_limbs
     qb = ctx.q[:, None]
-    s_coef = ternary_coeffs_tf(_streams(root, _TAG_SECRET, n_parties), (n,))
-    e_coef = cbd_coeffs_tf(_streams(root, _TAG_PK_NOISE, n_parties), (n,))
+    s_coef = ternary_coeffs_key(_streams(root, _TAG_SECRET, n_parties), (n,))
+    e_coef = cbd_coeffs_key(_streams(root, _TAG_PK_NOISE, n_parties), (n,))
     s_hat, e_hat = ntt_mod.ntt(
         lift_signed(torch.stack([s_coef, e_coef]), ctx.q),
         ctx.tables)                                      # (P, L, N) each
-    a = uniform_mod_q_tf(_stream(root, _TAG_PK_A, 0), (L, n),
-                         ctx.params.moduli)
+    a = uniform_mod_q_key(_stream(root, _TAG_PK_A, 0), (L, n),
+                          ctx.params.moduli)
     terms = modops.add_mod(modops.neg_mod(modops.mul_mod(a, s_hat, qb), qb),
                            e_hat, qb)
     b = _sum_parties(terms, qb).to(_I32)
@@ -361,7 +364,7 @@ def threshold_decrypt(ctx: CkksContext, secrets: PartySecrets,
                       ct: ckks_ops.Ciphertext,
                       rng_keys: torch.Tensor) -> torch.Tensor:
     """Every party's MultipartyDecryptLead / Main and the fusion, stacked:
-    (chunks, N) f32. rng_keys (P, 2) are the fresh smudging streams; party
+    (chunks, N) f32. rng_keys (P, W) are the fresh smudging streams; party
     0 leads. The residues of the per-party path under the same keys."""
     return _fuse(ctx, _partials(ctx, secrets, ct.data, rng_keys), ct.scale)
 
@@ -383,9 +386,9 @@ def multiparty_relin_key_batched(ctx: CkksContext, secrets: PartySecrets,
     chain, P = ctx.params.chain_len, secrets.n_parties
     qb = ctx.q[:, None]
     a = _common_rows(ctx, common_seed)
-    r2_keys = threefry.split(_streams(root, _TAG_RELIN_R2, P))   # (P, 2, 2)
+    r2_keys = prng.split(_streams(root, _TAG_RELIN_R2, P))       # (P, 2, W)
     keys = torch.stack([_streams(root, _TAG_RELIN_R1, P),
-                        r2_keys[:, 0], r2_keys[:, 1]])           # (3, P, 2)
+                        r2_keys[:, 0], r2_keys[:, 1]])           # (3, P, W)
     e1_hat, e0_r2, e1_r2 = _noise_hat(ctx, keys, (chain, ctx.ring_dim))
     s = secrets.s[:, None]                               # (P, 1, L, N)
     s_sh = secrets.s_shoup[:, None]
@@ -405,7 +408,7 @@ def multiparty_galois_key_batched(ctx: CkksContext, secrets: PartySecrets,
                                   rng_keys: torch.Tensor
                                   ) -> ks_mod.KSwitchKey:
     """The joint Galois key ceremony with the party axis stacked; rng_keys
-    (P, 2). The residues of per-party partial_galois_key +
+    (P, W). The residues of per-party partial_galois_key +
     combine_switch_key_shares under the same keys."""
     qb = ctx.q[:, None]
     a = _common_rows(ctx, common_seed)
@@ -427,7 +430,7 @@ def threshold_round_fused(ctx: CkksContext, secrets: PartySecrets,
     all K clients, the weighted sum (K3 on a CUDA tensor), all parties'
     partial decryptions and the fusion. values (K, chunks, N) f32 ->
     averaged (chunks, N) f32 on their device. No single secret key is
-    formed; dec_keys (P, 2) are fresh smudging streams."""
+    formed; dec_keys (P, W) are fresh smudging streams."""
     ct = ckks_ops.encrypt_stacked(ctx, pk, values, enc_key, scale)
     w_res, w_shoup, ds = ckks_ops._encode_weights(
         ctx, weights, ctx.params.chain_len, 0)

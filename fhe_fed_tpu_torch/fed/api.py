@@ -12,15 +12,23 @@ as fhe_fed_tpu.fed.api.CKKS, on one torch device.
 The constructor takes the JAX class's arguments and refuses the same
 combinations, plus `device` (default "cuda", the card; pass "cpu" to run
 on the CPU): the context, the keys and every tensor of the helper live
-there; it is never chosen by what the machine has. The cryptodir
+there; it is never chosen by what the machine has. `prng` ("rbg",
+"threefry", or None for the device's default) takes the place of the JAX
+class's FHE_FED_TPU_PRNG environment override. The cryptodir
 (cryptocontext.txt JSON, FFTK key files) and every blob (FFTC, FFTS,
 FFTP) are the JAX package's formats, so either package reads what the
 other writes.
 
-The helper's PRNG stream is the threefry key key(seed), advanced by
-split, as the JAX class uses it off a TPU: with the same seed both
-classes write the same key files and the same ciphertext bytes. (On a TPU
-the JAX class defaults to the 'rbg' PRNG, which is not ported.)
+The helper's PRNG stream is the key key(seed) of its implementation
+(utils/prng.py), advanced by split, as the JAX class uses it. The JAX
+class picks the implementation by backend: rbg on its accelerator,
+threefry elsewhere; so does this one by device (prng.default_impl): rbg
+on the card, its leaves drawn by the card's Philox, threefry on the CPU.
+Under threefry, with the same seed, both classes write the same key files
+and the same ciphertext bytes, on the CPU and on the card alike. Under
+rbg the key tree is JAX's but the draws are the device's own, so the
+bytes are the port's; an FFTS blob's `a` comes from threefry whatever the
+session key, so any server expands it.
 
 Chunking follows the reference: ceil(size / capacity) chunks, the decrypt
 tail rule, `dense_pack` packing the full ring per chunk, `packing="slots"`
@@ -42,7 +50,7 @@ from ..ckks import keys as ckks_keys
 from ..ckks import ops as ckks_ops
 from ..ckks import serial as ckks_serial
 from ..ckks import slots as ckks_slots
-from ..utils import threefry
+from ..utils import prng as prng_mod
 from .scheme import Scheme, register_scheme
 
 _CTX_FILE = "cryptocontext.txt"
@@ -58,7 +66,8 @@ class CKKS(Scheme):
                  mult_depth: int = 1, dense_pack: bool = False,
                  symmetric: bool = False, seeded_fresh: bool = False,
                  seed: int | None = None, packing: str = "coeff",
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 prng: str | None = None):
         super().__init__(scheme)
         self.batchSize = int(batchSize)
         self.scaleFactorBits = int(scaleFactorBits)
@@ -92,8 +101,13 @@ class CKKS(Scheme):
         self._ctx = None
         self._sk = None
         self._pk = None
-        self._rng = threefry.key(
-            secrets.randbits(63) if seed is None else seed, self.device)
+        # The sampling PRNG: rbg on the card, threefry on the CPU, unless
+        # the caller names one.
+        self.prng = (prng_mod.default_impl(self.device) if prng is None
+                     else prng)
+        self._rng = prng_mod.key(
+            secrets.randbits(63) if seed is None else seed, self.prng,
+            self.device)
 
     # -- context / key lifecycle ------------------------------------------
 
@@ -114,7 +128,7 @@ class CKKS(Scheme):
         """Generate context + keys and persist them (ckks.cpp:25-59)."""
         ctx = self.ctx
         sk, pk = ckks_keys.keygen(
-            ctx, int(threefry.bits(self._next_key(), ())))
+            ctx, int(prng_mod.bits(self._next_key(), ())))
         self._sk, self._pk = sk, pk
         os.makedirs(self.cryptodir, exist_ok=True)
         meta = dict(scheme="ckks", batchSize=self.batchSize,
@@ -153,7 +167,7 @@ class CKKS(Scheme):
             self.genCryptoContextAndKeyGen()
 
     def _next_key(self) -> torch.Tensor:
-        self._rng, k = threefry.split(self._rng).unbind(0)
+        self._rng, k = prng_mod.split(self._rng).unbind(0)
         return k
 
     # -- data path ---------------------------------------------------------

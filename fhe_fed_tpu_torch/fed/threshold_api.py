@@ -14,7 +14,10 @@ a deployment runs, one machine per share.
 
 The cryptodir (cryptocontext.txt JSON with `parties`, key-public.txt,
 key-share-{i}.txt) and every blob are the JAX class's bytes for the same
-seed, so either package reads what the other writes.
+seed under threefry (the CPU's default, or prng="threefry"), so either
+package reads what the other writes. On the card the session key is rbg,
+as CKKS's: the keygen ceremony, the encrypts and the smudging draw from
+the card's Philox (the JAX class inherits rbg on its accelerator).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from ..ckks import ops as ckks_ops
 from ..ckks import serial as ckks_serial
 from ..ckks import threshold as thr
-from ..utils import threefry
+from ..utils import prng as prng_mod
 from .api import CKKS, _CTX_FILE, _PK_FILE
 from .scheme import register_scheme
 
@@ -44,11 +47,12 @@ class ThresholdCKKS(CKKS):
                  cryptodir: str = "../resources/cryptoparams/",
                  parties: int = 3, mult_depth: int = 1,
                  dense_pack: bool = False, seed: int | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 prng: str | None = None):
         super().__init__("ckks-threshold", batchSize, scaleFactorBits,
                          cryptodir, mult_depth=mult_depth,
                          dense_pack=dense_pack, symmetric=False, seed=seed,
-                         device=device)
+                         device=device, prng=prng)
         self.parties = int(parties)
         self._secrets: thr.PartySecrets | None = None
 
@@ -117,8 +121,8 @@ class ThresholdCKKS(CKKS):
     # -- decryption: the threshold ceremony --------------------------------
 
     def _dec_keys(self) -> torch.Tensor:
-        """One fresh smudging stream per party per decryption: (P, 2)."""
-        return threefry.split(self._next_key(), self.parties)
+        """One fresh smudging stream per party per decryption: (P, W)."""
+        return prng_mod.split(self._next_key(), self.parties)
 
     def _deserialize(self, learner_data: bytes) -> ckks_ops.Ciphertext:
         return ckks_serial.deserialize_ct(self.ctx, learner_data,
@@ -161,8 +165,9 @@ class ThresholdCKKS(CKKS):
                         rng_key: torch.Tensor | None = None) -> np.ndarray:
         """Party `party`'s published share of a serialized ciphertext:
         MultipartyDecryptLead (party 0) or Main, as a uint32 numpy array
-        (chunks, live, N), the JAX class's return. `rng_key`: a threefry
-        key (2,), by default the next session key."""
+        (chunks, live, N), the JAX class's return. `rng_key`: a key of
+        either implementation (utils/prng.py), by default the next session
+        key."""
         secrets = self._require_secrets()
         if not 0 <= party < self.parties:
             raise ValueError(f"party {party} out of range "

@@ -6,9 +6,10 @@ the committed key fixtures, 3 clients, 2 chunks and blocks of 2 rounds:
 the cohort is bench.py's construction byte for byte; under
 prng="threefry" every round's ciphertexts, aggregates, decrypts and fused
 rounds equal the JAX package's for the same tag bit for bit (decrypted
-f32 compared as int32 bit patterns: tolerance 0); the Generator path is
-reproducible per tag and decrypts within bench.py's 1e-6; the JSON dict
-has bench.py's keys.
+f32 compared as int32 bit patterns: tolerance 0); under prng="rbg" the
+round keys are jax.random.split(jax.random.key(tag, impl="rbg")) bit for
+bit, the rounds are reproducible per tag and decrypt within bench.py's
+1e-6; the JSON dict has bench.py's keys.
 """
 
 import ast
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 from fhe_fed_tpu.ckks import params as J_params, ops as J_ops
 from fhe_fed_tpu.ckks import serial as J_serial
 from fhe_fed_tpu_torch import bench
+from fhe_fed_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -121,6 +123,20 @@ def test_threefry_round_keys_are_jax_split(tag):
                                   np.asarray(want).astype(np.int64))
 
 
+@pytest.mark.parametrize("tag", TAGS)
+def test_rbg_round_keys_are_jax_split(tag):
+    """bench.py:164's keys: split(key(tag, "rbg"), rounds), the port's and
+    JAX's key data alike."""
+    got = bench.round_rngs(tag, ROUNDS, "rbg", CPU)
+    assert len(got) == ROUNDS
+    assert torch.equal(torch.stack(got),
+                       prng.split(prng.key(tag, "rbg", CPU), ROUNDS))
+    want = jax.random.key_data(jax.random.split(
+        jax.random.key(tag, impl="rbg"), ROUNDS))
+    np.testing.assert_array_equal(torch.stack(got).numpy(),
+                                  np.asarray(want).astype(np.int64))
+
+
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_threefry_round_equals_jax(pair, symmetric):
     """Each round's cohort ciphertext, its weighted sum and its decrypt
@@ -168,13 +184,14 @@ def test_threefry_fused_round_equals_jax(pair):
 
 
 def test_generator_rounds_are_reproducible_and_decrypt(pair):
-    """The Generator path: the same tag gives the same ciphertexts, another
-    tag others; the decrypt is within 1e-6 of the f32 plaintext average."""
+    """The rbg path (the device's generator, seeded from rbg keys): the
+    same tag gives the same ciphertexts, another tag others; the decrypt
+    is within 1e-6 of the f32 plaintext average."""
     c = pair["cohort"]
-    g = bench.Cohort(c.ctx, c.sk, c.pk, c.values, c.weights, "generator")
-    a = bench.encrypt_rounds(g, bench.round_rngs(5, ROUNDS, "generator", CPU))
-    b = bench.encrypt_rounds(g, bench.round_rngs(5, ROUNDS, "generator", CPU))
-    other = bench.encrypt_rounds(g, bench.round_rngs(6, 1, "generator", CPU))
+    g = bench.Cohort(c.ctx, c.sk, c.pk, c.values, c.weights, "rbg")
+    a = bench.encrypt_rounds(g, bench.round_rngs(5, ROUNDS, "rbg", CPU))
+    b = bench.encrypt_rounds(g, bench.round_rngs(5, ROUNDS, "rbg", CPU))
+    other = bench.encrypt_rounds(g, bench.round_rngs(6, 1, "rbg", CPU))
     for x, y in zip(a, b):
         assert torch.equal(x.data, y.data)
     assert not torch.equal(a[0].data, a[1].data)
@@ -186,7 +203,7 @@ def test_generator_rounds_are_reproducible_and_decrypt(pair):
 
 def test_round_rngs_refuses_an_unknown_prng():
     with pytest.raises(ValueError, match="prng"):
-        bench.round_rngs(1, 2, "rbg", CPU)
+        bench.round_rngs(1, 2, "generator", CPU)
 
 
 def _bench_py_json_keys():
@@ -206,10 +223,10 @@ def _bench_py_json_keys():
 
 def test_headline_json_has_bench_py_keys_and_holds_max_err():
     """One headline on the CPU at 407-chunk packing (4096 values a chunk)
-    over 2 chunks, blocks of 2, one rep, Generator PRNG: bench.py's metric
+    over 2 chunks, blocks of 2, one rep, rbg PRNG: bench.py's metric
     and keys, plus backend / prng / device / power_limit_w; max_err <=
     1e-6; JSON-serialisable."""
-    r = bench.headline(4096, "generator", "cpu", n_params=8000, n_times=2,
+    r = bench.headline(4096, "rbg", "cpu", n_params=8000, n_times=2,
                        reps=1)
     top, phases, config = _bench_py_json_keys()
     assert set(r) == top
@@ -219,7 +236,7 @@ def test_headline_json_has_bench_py_keys_and_holds_max_err():
     assert r["config"]["chunks"] == 2 and r["config"]["values_per_ct"] == 4096
     assert (r["config"]["backend"], r["config"]["prng"],
             r["config"]["device"], r["config"]["power_limit_w"]) == (
-                "cpu", "generator", "cpu", None)
+                "cpu", "rbg", "cpu", None)
     assert r["max_err"] <= 1e-6
     assert r["value"] == pytest.approx(sum(
         r["phases"][k] for k in ("encrypt", "aggregate", "decrypt")))

@@ -8,9 +8,10 @@ They repeat chip_smoke.py's phases at smaller sizes, plus the shapes and
 options the paths do not reach (small rings, K > 8, every live-limb count
 of the decode up to 27, K1 up to 28 limbs, K2 at N = 65536, both NTT
 kernels on one ring), and hold the threefry
-sampling, the CKKS bytes surface, the FFTS expansion, the threshold
-ceremonies and the masking scheme's online phase on the card equal to the
-CPU.
+sampling, the CKKS bytes surface under threefry, the FFTS expansion, the
+threshold ceremonies and the masking scheme's online phase on the card
+equal to the CPU, and the rbg draws (the card's Philox, seeded from the
+port's rbg keys) to their key tree, statistics and decrypts.
 """
 
 import dataclasses
@@ -315,6 +316,7 @@ def test_entry_points_default_to_the_card_on_card(dev, tmp_path):
                                        1.0, 0)
     assert ct.data.device == card
     h = CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "run"), seed=7)
+    assert h.prng == "rbg" and h._rng.device == card
     h.genCryptoContextAndKeyGen()
     x = np.random.default_rng(0).standard_normal(300)
     out = h.decrypt(h.computeWeightedAverage([h.encrypt(x)], [1.0]), 300)
@@ -417,12 +419,45 @@ def test_threefry_and_samplers_on_card_equal_cpu(dev, seed):
         assert torch.equal(fn(kg, (3, 8192)).cpu(), fn(kc, (3, 8192)))
 
 
+def test_rbg_draws_on_card(dev):
+    """The rbg key tree on the card is the CPU's, its Generators are the
+    card's, its draws reproducible per key, and its samplers' statistics
+    over 2**20 draws each within chip_smoke.Z_BOUND standard errors."""
+    from fhe_fed_tpu_torch.utils import prng
+    chip_smoke.check_rbg_key_tree(dev)
+    keys_ = prng.split(prng.key(3, "rbg", dev), 2)
+    assert all(g.device == dev for g in prng.generators(keys_))
+    moduli = P.make_params(batch=4096, scale_bits=52, mult_depth=1).moduli
+    got = keys.uniform_mod_q_key(keys_, (2, 4, 8192), moduli)
+    assert got.is_cuda and torch.equal(
+        got, keys.uniform_mod_q_key(keys_, (2, 4, 8192), moduli))
+    z = chip_smoke.rbg_sample_z(dev, moduli[:4], 8192, 128)
+    assert all(abs(v) <= chip_smoke.Z_BOUND for v in z.values()), z
+
+
+def test_rbg_path_small(dev, tmp_path):
+    """chip_smoke's rbg helpers and round with 20,000-value vectors: rbg
+    by default on the card, every mode and the threshold round within
+    1e-6, the same seed the same bytes."""
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
+    d = chip_smoke.write_cryptodir(params, tmp_path / "crypto")
+    hs, twins = (chip_smoke.rbg_helpers(d, dev) for _ in range(2))
+    others = chip_smoke.rbg_helpers(d, dev, seed=31)
+    th = chip_smoke.threshold_helper(tmp_path / "thr", dev, seed=23)
+    vecs, want = chip_smoke.api_vectors(20000, 10)
+    (outs, blobs), _ = chip_smoke.drive("rbg", lambda: (
+        chip_smoke.run_rbg_path(hs, twins, others, th, vecs)))
+    errs = chip_smoke.check_rbg(outs, blobs, want)
+    assert set(errs) == {"bytes_symmetric", "bytes_public_key",
+                         "bytes_seeded_fresh", "threshold_round_fused"}
+
+
 @pytest.mark.parametrize("mode", [dict(), dict(symmetric=True),
                                   dict(seeded_fresh=True),
                                   dict(packing="slots")])
 def test_ckks_bytes_on_card_equal_cpu(dev, tmp_path, mode):
     helpers = [CKKS("ckks", 128, 40, cryptodir=str(tmp_path / d.type),
-                    seed=7, device=d, **mode)
+                    seed=7, device=d, prng="threefry", **mode)
                for d in (torch.device("cpu"), dev)]
     for h in helpers:
         h.genCryptoContextAndKeyGen()
@@ -814,7 +849,7 @@ def test_bench_headline_on_card(dev, cap, chunks):
     with blocks of 2 rounds and one rep: its chunk count, max_err <= 1e-6,
     K1, K3 and K4 launched, and a block's output on the card."""
     cuda_lib.launches.clear()
-    r = bench.headline(cap, "generator", dev, n_times=2, reps=1)
+    r = bench.headline(cap, "rbg", dev, n_times=2, reps=1)
     assert (r["config"]["chunks"], r["config"]["backend"]) == (chunks, "cuda")
     assert r["max_err"] <= 1e-6
     for k in ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",

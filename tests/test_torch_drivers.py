@@ -17,6 +17,9 @@ param_sweep's threshold point on the CPU, against the JAX drivers' records.
   and 2 ranks carry the keys, in order, of the JAX drivers' committed
   records (results/baseline_configs_tpu.jsonl,
   results/scaling_virtual.jsonl);
+- microprof at a small ring prints a line for each of the JAX script's
+  operations (every draw under threefry and rbg) and the launch floor,
+  then its JSON record, which it also appends to microprof.jsonl;
 - each ported driver's flags are the JAX driver's plus --device / --out.
 """
 
@@ -43,6 +46,7 @@ from fhe_fed_tpu_torch.benchmarks import masking_bench as MB  # noqa: E402
 from fhe_fed_tpu_torch.native import paillier as T_pail  # noqa: E402
 from fhe_fed_tpu_torch.benchmarks import baseline_configs as BC  # noqa: E402
 from fhe_fed_tpu_torch.benchmarks import scaling_virtual as SV  # noqa: E402
+from fhe_fed_tpu_torch.benchmarks import microprof as MP  # noqa: E402
 from fhe_fed_tpu_torch.parallel import launch  # noqa: E402
 
 import _torch_dist_child as C  # noqa: E402
@@ -186,6 +190,41 @@ def test_scaling_virtual_two_ranks(tmp_path, monkeypatch):
     assert len(lines) == 2
 
 
+MICROPROF_LINES = [
+    "launch_floor_single", "launch_floor_pipelined", "ntt (3,4,256)",
+    "intt same", "encode_coeff", "sampling u, e0, e1 (threefry)",
+    "sampling u, e0, e1 (rbg)", "encrypt one client (threefry)",
+    "encrypt one client (rbg)", "weighted_sum 3 clients", "decrypt",
+    "[sym] encode (2,4,256)", "[sym] uniform a (threefry)",
+    "[sym] uniform a (rbg)", "[sym] cbd error (threefry)",
+    "[sym] cbd error (rbg)", "[sym] ntt", "[sym] a*s + w",
+    "[sym] full encrypt_symmetric (threefry)",
+    "[sym] full encrypt_symmetric (rbg)"]
+
+
+def test_microprof_prints_every_line(tmp_path, capsys, monkeypatch):
+    """microprof.main on the CPU at ring 256, 3 and 2 chunks, blocks of 2
+    calls: one line per op in order, each a positive time, then the JSON
+    record (host clock, on the CPU), appended to microprof.jsonl."""
+    for name, value in (("PARAMS", dict(batch=128, scale_bits=40,
+                                         mult_depth=1, ring_dim=256)),
+                        ("CHUNKS", 3), ("SYM_CHUNKS", 2), ("ITERS", 2),
+                        ("REPS", 1)):
+        monkeypatch.setattr(MP, name, value)
+    rec = MP.main(["--device", "cpu", "--out", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("ring_dim=256 chain=4 chunks=3 sym_chunks=2")
+    timed = [ln.split(": ")[0] for ln in lines[1:-1]
+             if not ln.startswith("  (")]
+    assert timed == MICROPROF_LINES
+    assert list(rec["microprof_ms"]) == MICROPROF_LINES
+    assert all(v > 0 for v in rec["microprof_ms"].values())
+    assert (rec["config"]["timer"], rec["config"]["device"]) == (
+        "host_clock", "cpu")
+    assert json.loads(lines[-1]) == rec
+    assert json.loads((tmp_path / "microprof.jsonl").read_text()) == rec
+
+
 def _flags(path: pathlib.Path) -> set[str]:
     """The option strings of every add_argument call in a driver."""
     out = set()
@@ -201,7 +240,7 @@ def _flags(path: pathlib.Path) -> set[str]:
 @pytest.mark.parametrize("driver", [
     "baseline_configs", "scaling_virtual", "model_bench", "selective_bench",
     "train_synth", "param_sweep", "attack_eval", "fedavg_demo", "mkhe_bench",
-    "masking_bench"])
+    "masking_bench", "microprof"])
 def test_driver_flags_are_the_jax_drivers_and_device_out(driver):
     jax_flags = _flags(ROOT / "benchmarks" / f"{driver}.py")
     port_flags = _flags(ROOT / "fhe_fed_tpu_torch" / "benchmarks"

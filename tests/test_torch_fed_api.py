@@ -233,3 +233,73 @@ def test_scheme_registry_and_cpp_aliases(shared_dir):
     agg = t.computeWeightedAverage_cpp((blob,), (1.0,))
     np.testing.assert_allclose(t.decrypt_cpp(agg, 50), d, atol=1e-6)
     assert os.path.isfile(os.path.join(shared_dir, "cryptocontext.txt"))
+
+
+def test_prng_defaults_to_threefry_on_the_cpu_and_rbg_on_the_card(tmp_path):
+    """The helper's PRNG follows its device, as the JAX class follows its
+    backend: threefry on the CPU (the JAX package's bytes; the helpers of
+    the parity tests above), rbg for a CUDA device (the selection
+    function; nothing is allocated). An explicit prng wins; an unknown one
+    is refused."""
+    from fhe_fed_tpu_torch.utils import prng
+    assert prng.default_impl(torch.device("cuda")) == "rbg"
+    assert prng.default_impl(torch.device("cpu")) == "threefry"
+    d = str(tmp_path)
+    h = T.CKKS("ckks", 128, 40, cryptodir=d, seed=7, device="cpu")
+    assert h.prng == "threefry" and h._rng.shape == (2,)
+    r = T.CKKS("ckks", 128, 40, cryptodir=d, seed=7, device="cpu",
+               prng="rbg")
+    assert r.prng == "rbg" and r._rng.shape == (4,)
+    np.testing.assert_array_equal(r._rng.numpy(), [0, 7, 0, 7])
+    x = T.CKKS("ckks", 128, 40, cryptodir=d, seed=7, device="cpu",
+               prng="threefry")
+    assert torch.equal(x._rng, h._rng)
+    with pytest.raises(ValueError, match="PRNG"):
+        T.CKKS("ckks", 128, 40, cryptodir=d, device="cpu", prng="philox")
+
+
+RBG_MODES = {k: MODES[k] for k in ("symmetric", "public_key", "seeded_fresh",
+                                   "slots")}
+
+
+@pytest.mark.parametrize("mode", RBG_MODES)
+def test_rbg_helper_rounds_decrypt(shared_dir, mode):
+    """prng="rbg" on the CPU: the bytes surface and the cohort round
+    decrypt within 1e-6; the same seed gives the same bytes, another seed
+    others, and neither is the threefry helper's."""
+    rng = np.random.default_rng(12)
+    data = [rng.standard_normal(DIMS) for _ in range(3)]
+    want = sum(w * d for w, d in zip(WEIGHTS, data))
+    h = _loaded(T.CKKS, shared_dir, prng="rbg", **RBG_MODES[mode])
+    blobs = [h.encrypt(d) for d in data]
+    out = h.decrypt(h.computeWeightedAverage(blobs, WEIGHTS), DIMS)
+    np.testing.assert_allclose(out, want, atol=1e-6)
+    twin = _loaded(T.CKKS, shared_dir, prng="rbg", **RBG_MODES[mode])
+    assert [twin.encrypt(d) for d in data] == blobs
+    other = T.CKKS("ckks", 128, 40, cryptodir=shared_dir, seed=12,
+                   device="cpu", prng="rbg", **RBG_MODES[mode])
+    other.loadCryptoParams()
+    assert other.encrypt(data[0]) != blobs[0]
+    assert _loaded(T.CKKS, shared_dir, **RBG_MODES[mode]).encrypt(
+        data[0]) != blobs[0]
+    if mode != "slots":
+        for fused in (True, False):
+            np.testing.assert_allclose(
+                h.fedavg_round(data, WEIGHTS, DIMS, fused=fused), want,
+                atol=1e-6)
+
+
+def test_rbg_ffts_blob_is_aggregated_and_decrypted_by_jax(shared_dir):
+    """An FFTS blob the port seals under rbg carries its a-stream as a
+    threefry seed pair, so the JAX package expands, aggregates and
+    decrypts it within 1e-6, and expands it to the port's ciphertext."""
+    rng = np.random.default_rng(13)
+    data = [rng.standard_normal(DIMS) for _ in range(2)]
+    t = _loaded(T.CKKS, shared_dir, prng="rbg", seeded_fresh=True)
+    blobs = [t.encrypt(d) for d in data]
+    assert all(b[:4] == b"FFTS" for b in blobs)
+    j = _loaded(J.CKKS, shared_dir)
+    agg = j.computeWeightedAverage(blobs, [0.25, 0.75])
+    np.testing.assert_allclose(j.decrypt(agg, DIMS),
+                               0.25 * data[0] + 0.75 * data[1], atol=1e-6)
+    assert agg == t.computeWeightedAverage(blobs, [0.25, 0.75])

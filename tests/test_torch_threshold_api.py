@@ -204,3 +204,51 @@ def test_fedavg_round_never_runs_the_single_key_round(pair, monkeypatch):
     np.testing.assert_allclose(t.fedavg_round(data, WEIGHTS, DIMS,
                                               fused=False), want, atol=1e-5)
     assert calls == [1]
+
+
+def test_prng_default_is_threefry_on_the_cpu(pair):
+    """ThresholdCKKS on the CPU samples with threefry (the JAX cryptodir
+    and bytes above), rbg when asked or on the card."""
+    from fhe_fed_tpu_torch.utils import prng
+    _, t, d = pair
+    assert t.prng == "threefry" and t._rng.shape == (2,)
+    assert prng.default_impl(torch.device("cuda")) == "rbg"
+    r = T.ThresholdCKKS("ckks-threshold", 128, 40, cryptodir=str(d / "x"),
+                        parties=3, seed=5, device="cpu", prng="rbg")
+    assert r.prng == "rbg" and r._dec_keys().shape == (3, 4)
+
+
+def test_rbg_threshold_round_decrypts(tmp_path):
+    """prng="rbg" on the CPU: the keygen ceremony rooted at an rbg session
+    key, the bytes surface, both fedavg_round forms and three partial
+    decryptions under rbg smudging keys, fused, all within the threshold
+    bound (1e-5 at 2**40); the same seed gives the same key shares."""
+    from fhe_fed_tpu_torch.utils import prng
+    hs = []
+    for sub in ("a", "b"):
+        h = T.ThresholdCKKS("ckks-threshold", 128, 40,
+                            cryptodir=str(tmp_path / sub), parties=3, seed=5,
+                            device="cpu", prng="rbg")
+        h.genCryptoContextAndKeyGen()
+        hs.append(h)
+    for name in FILES:
+        assert (tmp_path / "a" / name).read_bytes() == \
+            (tmp_path / "b" / name).read_bytes(), name
+    T.ThresholdCKKS("ckks-threshold", 128, 40, cryptodir=str(tmp_path / "c"),
+                    parties=3, seed=5, device="cpu"
+                    ).genCryptoContextAndKeyGen()
+    assert (tmp_path / "a" / FILES[2]).read_bytes() != \
+        (tmp_path / "c" / FILES[2]).read_bytes()
+    h = hs[0]
+    data = _data(7)
+    want = sum(w * x.astype(np.float64) for w, x in zip(WEIGHTS, data))
+    agg = h.computeWeightedAverage([h.encrypt(x) for x in data], WEIGHTS)
+    np.testing.assert_allclose(h.decrypt(agg, DIMS), want, atol=1e-5)
+    for fused in (True, False):
+        np.testing.assert_allclose(
+            h.fedavg_round(data, WEIGHTS, DIMS, fused=fused), want,
+            atol=1e-5)
+    keys = prng.split(prng.key(70, "rbg", "cpu"), 3)
+    parts = [h.partial_decrypt(i, agg, rng_key=keys[i]) for i in range(3)]
+    np.testing.assert_allclose(h.fuse_partials(parts, agg, DIMS), want,
+                               atol=1e-5)
