@@ -168,7 +168,7 @@ Phases (each raises on failure, so the script exits non-zero):
      bench.py's round, at its default schedule (init twice from the
      committed keys, two warm-up blocks, 5 blocks of 16 rounds, 3
      public-key and 3 fused blocks, medians, host clock) under rbg keys
-     (bench.py's choice; drawn by the card's Philox), at 204 chunks (8192
+     (bench.py's choice; drawn by the Philox kernel), at 204 chunks (8192
      values a chunk) and 407 (4096);
      each result's JSON dict on a line of its own, max_err <= 1e-6. Then,
      at each packing, bench's phases timed with CUDA events beside the
@@ -179,17 +179,27 @@ Phases (each raises on failure, so the script exits non-zero):
      8192)) and the public-key encrypt's ((4, 3, 204 / 407, 4, 8192)),
      and K4 on the path's decrypt residues ((204 / 407, 4, 8192)).
  19. the rbg phase (utils/prng.py; run after phase 8), at the bench
-     configuration: the rbg key tree (key, split, fold_in, the Generator
-     seeds) on the card equal to the CPU's; the CKKS helpers on the card,
-     whose PRNG defaults to rbg, in the symmetric, public-key and
-     seeded_fresh modes over the CNN's 3 x 1,663,370 values within 1e-6,
-     the same seed giving the same bytes and another seed others, and a
-     ThresholdCKKS keygen ceremony and fused round under rbg within 1e-6;
-     the rbg samplers' statistics over 1224 x 8192 draws each (each limb's
-     uniform mean and variance, the ternary frequencies, the CBD mean and
-     variance 10), each within 5 standard errors; the API helpers'
-     encrypts (bytes and cohort) under prng="rbg" and "threefry" side by
-     side, CUDA events; one fhe_fed_tpu_torch.benchmarks.microprof run.
+     configuration: the rbg key tree (key, split, fold_in) and the words
+     drawn under it (XLA's Philox stream: one key, a batch key by key and
+     under the vmap rule) on the card equal to the CPU's; the Philox
+     kernel (csrc/philox_rbg.cu, utils/philox_rbg.py) bit-exact against
+     its plain version at the bench's shapes (raw words (1224, 8192);
+     uniform (3, 204 / 407, 4, 8192) under the vmap rule; ternary and CBD
+     (4, 3, 204, 8192), CBD (3, 407, 8192)), timed beside torch.randint
+     over the same words (library_ms); one bench round under rbg round
+     keys on the card equal to the same round on the CPU through the
+     plain version (ciphertext, aggregate, decrypt: the JAX package's
+     round, which tests/test_torch_bench.py holds against bench.py); the
+     CKKS helpers on the card, whose PRNG defaults to rbg, in the
+     symmetric, public-key and seeded_fresh modes over the CNN's
+     3 x 1,663,370 values within 1e-6, the same seed giving the same bytes
+     and another seed others, and a ThresholdCKKS keygen ceremony and
+     fused round under rbg within 1e-6; the rbg samplers' statistics over
+     1224 x 8192 draws each (each limb's uniform mean and variance, the
+     ternary frequencies, the CBD mean and variance 10), each within 5
+     standard errors; the API helpers' encrypts (bytes and cohort) under
+     prng="rbg" and "threefry" side by side, CUDA events; one
+     fhe_fed_tpu_torch.benchmarks.microprof run.
 Each path runs with the launch counts set to 0 just before it and read just
 after; it fails if a kernel of that path was not launched. With --profile,
 one rotation, one batch multiply, one API encrypt and its threefry
@@ -207,6 +217,7 @@ import dataclasses
 import hashlib
 import itertools
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -245,7 +256,7 @@ from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.native import paillier
 from fhe_fed_tpu_torch.rns import modops, primes
-from fhe_fed_tpu_torch.utils import prng, threefry
+from fhe_fed_tpu_torch.utils import philox_rbg, prng, threefry
 
 ROOT = pathlib.Path(__file__).resolve().parent
 KEY_DIR = ROOT / "results" / "bench_keys_headline"
@@ -280,41 +291,49 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
                   "fhe_fed_tpu/ntt/pallas_ntt.py:157"),
     "intt_fused": ("fhe_fed_tpu_torch/csrc/ntt_butterfly.cu",
                    "fhe_fed_tpu/ntt/pallas_ntt.py:195"),
+    # Not a Pallas kernel: XLA's RngBitGenerator (Philox), which the JAX
+    # package's samplers reach through jax.random.bits under rbg.
+    "philox_rbg": ("fhe_fed_tpu_torch/csrc/philox_rbg.cu",
+                   "jax/_src/prng.py:1285 (XLA RngBitGenerator, via "
+                   "fhe_fed_tpu/ckks/keys.py:53-107)"),
 }
 PATH_KERNELS = {   # the kernels each driven path must launch
     "fedavg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
                "decode_fused"),
     "rotation": ("ntt_fused", "intt_fused"),
     "multiply": ("ntt_mxu_fused", "intt_mxu_fused"),
+    # The paths whose CKKS / ThresholdCKKS helpers or round keys sample
+    # under rbg (the default on the card) also run the Philox kernel.
     "api": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-            "decode_fused"),
+            "decode_fused", "philox_rbg"),
     "threshold": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                  "decode_fused"),
+                  "decode_fused", "philox_rbg"),
     # Host Paillier and int64 ring sums: no kernel of ours; the path checks
     # that its tensors live on the card instead.
     "masking": (),
     # N = 32768 and 65536 have no four-step split: K2 serves both.
-    "deep": ("ntt_fused", "intt_fused", "weighted_sum_fused", "decode_fused"),
+    "deep": ("ntt_fused", "intt_fused", "weighted_sum_fused", "decode_fused",
+             "philox_rbg"),
     "ring65536": ("ntt_fused", "intt_fused", "weighted_sum_fused",
                   "decode_fused"),
     "zoo": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-            "decode_fused"),
+            "decode_fused", "philox_rbg"),
     "train_sweep": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                    "decode_fused"),
+                    "decode_fused", "philox_rbg"),
     # Autograd through the zoo's LeNet: cuDNN and cuBLAS, no kernel of
     # ours; the path checks that its gradients live on the card instead.
     "attack": (),
     "drivers": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                "decode_fused"),
+                "decode_fused", "philox_rbg"),
     # The dist transforms are plain torch (as in JAX): K1 serves the
     # clients x chunks round and the threshold decrypt, K3 both sums, K4
     # every decode.
     "multidevice": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
                     "decode_fused"),
     "bench": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-              "decode_fused"),
+              "decode_fused", "philox_rbg"),
     "rbg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-            "decode_fused"),
+            "decode_fused", "philox_rbg"),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -484,7 +503,7 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def _record(recs, name, got, want, fn, plain_fn, reps, work, plain_reps=3,
-            shape=None, **extra):
+            shape=None, library_ms=None, **extra):
     """Raise unless `got` equals `want` bit for bit; else append the
     kernel's record (`shape`: its input's, by default the output's) with
     the call's time (`ms`, host work included where it exceeds the
@@ -507,8 +526,8 @@ def _record(recs, name, got, want, fn, plain_fn, reps, work, plain_reps=3,
                      max_abs_err=err,
                      ms=cuda_ms(fn, reps), device_ms=graph_ms(fn, reps),
                      plain_ms=cuda_ms(plain_fn, plain_reps),
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                     **extra))
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms, **extra))
 
 
 def record_k3(recs, ctx, stacked, weights, reps) -> None:
@@ -556,7 +575,8 @@ def record_k4(recs, ctx, res, scale, reps) -> torch.Tensor:
 
 def print_records(recs: list[dict], gpu: str) -> None:
     for r in recs:
-        body = f" [{r['body']}]" if "body" in r else ""
+        tag = r.get("body", r.get("epilogue"))
+        body = f" [{tag}]" if tag else ""
         print(f"kernel {r['name']}{body} {r['shape']}: bit-exact, "
               f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}) vs plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1501,7 +1521,8 @@ def threshold_path(dev, gpu: str, cnn_vecs, cnn_want: np.ndarray,
         us = profile(profile_dir, {
             "thr_round_fused": lambda: th.fedavg_round(cnn_vecs, API_WEIGHTS),
             "thr_smudging": lambda: thr._smudge(th.ctx, dec_keys, chunks,
-                                                th.ctx.params.chain_len)})
+                                                th.ctx.params.chain_len,
+                                                vmap=True)})
         print(f"profile smudging share of the fused threshold round's device "
               f"time: {us['thr_smudging'] / us['thr_round_fused']:.4f} "
               f"({gpu})", flush=True)
@@ -2058,7 +2079,8 @@ def party_sharded_decrypt(ctx, mesh, secrets, ct, rng_keys):
     t = modops.mul_mod_shoup(c1[None], secrets.s[idx, None, :live],
                              secrets.s_shoup[idx, None, :live], qb)
     parts = modops.add_mod(t, thr._smudge(ctx, rng_keys[idx],
-                                          ct.num_chunks, live), qb)
+                                          ct.num_chunks, live, vmap=True),
+                           qb)
     acc = ops.modsum_clients(parts, qb, ctx.pow32[:live, None],
                              ctx.pow32_shoup[:live, None])
     acc = modops.add_mod(PM.modsum_over(ctx, mesh, "party", acc), c0, qb)
@@ -2488,8 +2510,9 @@ def bench_path(dev, gpu: str, gen, prof_dir: pathlib.Path | None
 
 def check_rbg_key_tree(dev) -> None:
     """On dev: rbg key, split (nested, batched) and fold_in equal the CPU's,
-    and so do the Generator seeds they give; bits drawn on dev are
-    reproducible for one key and differ between keys."""
+    and so do the words drawn under them (XLA's Philox stream, which the
+    CPU tests hold against JAX): one key, a batch key by key, a batch under
+    the vmap rule; bits drawn on dev differ between keys."""
     cpu = torch.device("cpu")
     for seed in RBG_SEEDS:
         got, want = (prng.key(seed, "rbg", d) for d in (dev, cpu))
@@ -2497,17 +2520,102 @@ def check_rbg_key_tree(dev) -> None:
                  (prng.fold_in(got, 0x5eed), prng.fold_in(want, 0x5eed)),
                  (prng.split(prng.split(got, 3), 2),
                   prng.split(prng.split(want, 3), 2))]
+        for vmap in (False, True):
+            pairs.append(tuple(prng.bits(*prng.batch_rule(
+                prng.split(k, 3), (5, 7), vmap)) for k in (got, want)))
         for g, w in pairs:
             if g.device != dev or not torch.equal(g.cpu(), w):
-                raise AssertionError(f"rbg key tree on {dev} differs from "
-                                     f"the CPU's (seed {seed})")
-        if prng.seeds(prng.split(got, 3)) != prng.seeds(prng.split(want, 3)):
-            raise AssertionError(f"rbg Generator seeds on {dev} differ")
+                raise AssertionError(f"rbg key tree or bits on {dev} differ "
+                                     f"from the CPU's (seed {seed})")
     k1, k2 = prng.split(prng.key(1, "rbg", dev)).unbind(0)
-    a = prng.bits(k1, (4, 8192))
-    if not (a.device == dev and torch.equal(a, prng.bits(k1, (4, 8192)))
-            and not torch.equal(a, prng.bits(k2, (4, 8192)))):
-        raise AssertionError(f"rbg bits on {dev}: not reproducible per key")
+    if torch.equal(prng.bits(k1, (4, 8192)), prng.bits(k2, (4, 8192))):
+        raise AssertionError(f"rbg bits on {dev}: two keys drew alike")
+
+
+# The Philox kernel's records at the bench's shapes: (entry, per-key
+# shape, key batch, vmap): the raw words of 1224 x 8192 draws; the cohort
+# encrypt's uniform `a` under the vmap rule at 204 and 407 chunks; its
+# ternary and CBD draws (the public-key encrypt's u, e0, e1 over the
+# 3 clients, stacked 4 deep), also at 407 chunks.
+PHILOX_RECORDS = (
+    ("words", (1224, 8192), (), False),
+    ("uniform", (204, 4, 8192), (3,), True),
+    ("uniform", (407, 4, 8192), (3,), True),
+    ("ternary", (3, 204, 8192), (4,), True),
+    ("cbd", (3, 204, 8192), (4,), True),
+    ("cbd", (3, 407, 8192), (), False),
+)
+
+
+def check_philox_kernels(dev, moduli, reps=10) -> list[dict]:
+    """Each entry of the Philox kernel bit-exact against its plain version
+    (prng.philox_bits and the epilogues of ckks/keys.py) at PHILOX_RECORDS,
+    on keys split from key(41, "rbg") on the card; the record also times
+    torch.randint over the same count of 32-bit words (library_ms: not the
+    function, a yardstick of a generator's speed on the card)."""
+    recs = []
+    bits = prng.philox_bits
+    for entry, shape, batch, vmap in PHILOX_RECORDS:
+        root = prng.key(41, "rbg", dev)
+        ks = (prng.split(root, math.prod(batch)).reshape(*batch, 4)
+              if batch else root)
+        k, per = prng.batch_rule(ks, shape, vmap)
+        k1, k2 = (x.contiguous() for x in prng.split(k).unbind(-2))
+        k = k.contiguous()
+        if entry == "words":
+            fn = lambda: philox_rbg.words(k, per)
+            plain = lambda: bits(k, per)
+        elif entry == "uniform":
+            fn = lambda: philox_rbg.uniform_mod_q(k1, k2, per, moduli)
+            plain = lambda: keys.uniform_from_words(bits(k1, per),
+                                                    bits(k2, per), moduli)
+        elif entry == "ternary":
+            fn = lambda: philox_rbg.ternary(k, per)
+            plain = lambda: keys.ternary_from_words(bits(k, per))
+        else:
+            fn = lambda: philox_rbg.cbd(k1, k2, per)
+            plain = lambda: keys.cbd_from_words(bits(k1, per),
+                                                bits(k2, per))
+        got = fn()
+        words = got.numel() * (2 if entry in ("uniform", "cbd") else 1)
+        library_ms = cuda_ms(lambda: torch.randint(
+            -2 ** 31, 2 ** 31, (words,), dtype=torch.int32, device=dev),
+            reps)
+        _record(recs, "philox_rbg", got, plain(), fn, plain, reps,
+                (0, io_bytes(got, k1, k2)), plain_reps=2,
+                library_ms=library_ms, epilogue=entry, vmap=vmap,
+                key_batch=list(batch))
+    return recs
+
+
+def check_rbg_bench_round(dev, values: torch.Tensor, tag: int = 7) -> float:
+    """One round of bench's headline under its rbg round keys (the cohort
+    encrypt, secret key, at `values`' shape) on the card and on the CPU
+    through the plain version: the same ciphertext bit for bit, and the
+    same aggregate and decrypt. The CPU round is the JAX package's
+    (tests/test_torch_bench.py). Returns the CPU round's seconds."""
+    cpu = torch.device("cpu")
+    outs = {}
+    for d in (dev, cpu):
+        _, _, ctx, sk, pk = bench.run_init(d)
+        c = bench.Cohort(ctx, sk, pk, values.to(d), [1 / N_CLIENTS] *
+                         N_CLIENTS, "rbg")
+        t0 = time.perf_counter()
+        ct = bench.encrypt_rounds(c, bench.round_rngs(tag, 1, "rbg", d))[0]
+        agg = bench.aggregate_rounds(c, [ct])[0]
+        out = bench.decrypt_rounds(c, [agg])[0]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        outs[d.type] = (ct.data.cpu(), agg.data.cpu(), out.cpu(),
+                        time.perf_counter() - t0)
+    for i, what in enumerate(("ciphertext", "aggregate", "decrypt")):
+        a, b = outs["cuda"][i], outs["cpu"][i]
+        same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                if a.dtype == torch.float32 else torch.equal(a, b))
+        if not same:
+            raise AssertionError(f"rbg bench round on {dev}: the {what} "
+                                 f"differs from the CPU's")
+    return outs["cpu"][3]
 
 
 def _z_mean_var(x: torch.Tensor, mean: float, var: float,
@@ -2532,7 +2640,7 @@ def rbg_sample_z(dev, moduli, n: int, rows: int) -> dict:
     k_u, k_t, k_c = prng.split(prng.key(2024, "rbg", dev), 3).unbind(0)
     z = {}
     u = keys.uniform_mod_q_key(k_u, (rows // len(moduli), len(moduli), n),
-                               moduli)
+                               moduli, vmap=False)
     for limb, q in enumerate(moduli):
         x = u[:, limb]
         if not (x.device == dev and int(x.min()) >= 0
@@ -2541,14 +2649,14 @@ def rbg_sample_z(dev, moduli, n: int, rows: int) -> dict:
                                  f"[0, {q})")
         z[f"uniform_mean_{limb}"], z[f"uniform_var_{limb}"] = _z_mean_var(
             x, (q - 1) / 2, (q * q - 1) / 12, float(q) ** 4 / 80)
-    t = keys.ternary_coeffs_key(k_t, (rows, n))
+    t = keys.ternary_coeffs_key(k_t, (rows, n), vmap=False)
     if int(t.min()) != -1 or int(t.max()) != 1:
         raise AssertionError("ternary samples outside {-1, 0, 1}")
     draws = t.numel()
     for v in (-1, 0, 1):
         z[f"ternary_{v}"] = ((int((t == v).sum()) - draws / 3)
                              / float(np.sqrt(draws * 2 / 9)))
-    e = keys.cbd_coeffs_key(k_c, (rows, n))
+    e = keys.cbd_coeffs_key(k_c, (rows, n), vmap=False)
     if int(e.abs().max()) > 20:
         raise AssertionError("CBD samples outside [-20, 20]")
     z["cbd_mean"], z["cbd_var"] = _z_mean_var(e, 0.0, 10.0, 295.0)
@@ -2604,18 +2712,28 @@ def check_rbg(outs: dict, blobs: dict, want: np.ndarray) -> dict:
     return errs
 
 
-def rbg_path(dev, gpu: str, params, cnn_vecs, cnn_want: np.ndarray
-             ) -> collections.Counter:
-    """The rbg phase at the bench configuration: the key tree on the card
-    against the CPU's; under drive(), the rbg helpers' bytes rounds in the
-    symmetric, public-key and seeded_fresh modes (reproducible per seed)
-    and a ThresholdCKKS round; the samplers' statistics over ~10^7 draws;
-    then the API helpers' encrypts under prng="rbg" and "threefry" side by
-    side (CUDA events), and one microprof run. Returns the launches."""
+def rbg_path(dev, gpu: str, params, values: torch.Tensor, cnn_vecs,
+             cnn_want: np.ndarray) -> tuple[collections.Counter, list]:
+    """The rbg phase at the bench configuration: the key tree and draws on
+    the card against the CPU's; the Philox kernel bit-exact against its
+    plain version at the bench's shapes (check_philox_kernels); one bench
+    round under rbg on the card equal to the CPU's (`values`: the
+    (3, 204, 8192) cohort); under drive(), the rbg helpers' bytes rounds in
+    the symmetric, public-key and seeded_fresh modes (reproducible per
+    seed) and a ThresholdCKKS round; the samplers' statistics over ~10^7
+    draws; then the API helpers' encrypts under prng="rbg" and "threefry"
+    side by side (CUDA events), and one microprof run. Returns the
+    launches and the kernel records."""
     t0 = time.perf_counter()
     check_rbg_key_tree(dev)
-    print(f"rbg key tree on {dev} == the CPU's (seeds {list(RBG_SEEDS)}): "
-          f"ok", flush=True)
+    print(f"rbg key tree and bits on {dev} == the CPU's (seeds "
+          f"{list(RBG_SEEDS)}): ok", flush=True)
+    recs = check_philox_kernels(dev, params.moduli[:params.chain_len])
+    print_records(recs, gpu)
+    cpu_s = check_rbg_bench_round(dev, values)
+    print(f"rbg bench round {tuple(values.shape)} on {dev} == the CPU's "
+          f"(ciphertext, aggregate, decrypt): bit-exact (CPU round "
+          f"{cpu_s:.1f} s)", flush=True)
     root = ROOT / "build" / "rbg"
     d = write_cryptodir(params, root / "cryptodir")
     hs, twins = rbg_helpers(d, dev), rbg_helpers(d, dev)
@@ -2653,7 +2771,7 @@ def rbg_path(dev, gpu: str, params, cnn_vecs, cnn_want: np.ndarray
     print("microprof " + json.dumps(rec), flush=True)
     print(f"rbg phase: wall_s {time.perf_counter() - t0:.3f} ({gpu})",
           flush=True)
-    return counts
+    return counts, recs
 
 
 def main() -> int:
@@ -2869,7 +2987,9 @@ def main() -> int:
               f"{us['threefry_sampling'] / us['api_encrypt']:.4f} ({gpu})",
               flush=True)
 
-    rbg_counts = rbg_path(dev, gpu, params, cnn_vecs, cnn_want)
+    rbg_counts, rbg_recs = rbg_path(dev, gpu, params, values, cnn_vecs,
+                                    cnn_want)
+    recs += rbg_recs
     thr_counts, thr_recs = threshold_path(dev, gpu, cnn_vecs, cnn_want,
                                           args.profile)
     recs += thr_recs

@@ -30,15 +30,14 @@ coefficients: 8192 (default, dense) gives 204 chunks, 4096 gives 407 (the
 JAX script's FHE_FED_BENCH_DENSE=0).
 
 PRNG. bench.py draws each round's key from
-jax.random.split(jax.random.key(tag, impl="rbg"), rounds), XLA's device
-generator, chosen for speed and not reproducible across backends. So does
-this one (`--prng rbg`, the default), before the timer, with the port's
-rbg keys (utils/prng.py): the key tree is JAX's bit for bit, and each
-leaf of the encrypt draws from the card's Philox, seeded from its key,
-inside the timed encrypt as rbg's expansion does. The stream is
-reproducible per tag, and is not the JAX one. `--prng threefry` splits
-threefry keys, the keys jax.random.split(jax.random.key(tag), rounds)
-gives, so every ciphertext is the JAX package's bit for bit. The JSON's
+jax.random.split(jax.random.key(tag, impl="rbg"), rounds), XLA's
+RngBitGenerator, chosen for speed. So does this one (`--prng rbg`, the
+default), before the timer, with the port's rbg keys (utils/prng.py):
+the key tree and the draws are JAX's bit for bit (XLA's Philox words,
+and the stacked encrypt's vmap rule), the draws made inside the timed
+encrypt by the Philox kernel, as rbg's expansion is in bench.py. So every
+ciphertext is the JAX package's, as under `--prng threefry`, which splits
+the keys jax.random.split(jax.random.key(tag), rounds) gives. The JSON's
 config says which stream ran.
 
 The numbers are seconds, not rounded: at the card's speed bench.py's four
@@ -319,9 +318,10 @@ def main(argv=None) -> dict | None:
                     help="values packed per ciphertext chunk: 8192 (dense, "
                          "204 chunks) or 4096 (407 chunks)")
     ap.add_argument("--prng", choices=PRNGS, default=PRNGS[0],
-                    help="rbg keys drawn by the card's Philox (bench.py's "
-                         "choice), or threefry keys (the JAX package's "
-                         "ciphertexts bit for bit)")
+                    help="rbg keys, XLA's Philox drawn by the Philox "
+                         "kernel (bench.py's choice), or threefry keys; "
+                         "either gives the JAX package's ciphertexts bit "
+                         "for bit")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--keygen", action="store_true",
                     help="only write the key fixtures (main runs this in a "

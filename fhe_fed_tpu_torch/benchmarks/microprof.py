@@ -12,9 +12,10 @@ encrypt of one client, the 3-client weighted sum (K3) and the decrypt
 (K1 inverse, K4); then the secret-key encrypt at 204 chunks (the
 headline's dense packing), `[sym]`: encode, uniform `a`, the CBD error,
 the NTT, a*s + w and the whole encrypt_symmetric. Every line that draws
-runs under both PRNG implementations (utils/prng.py): threefry, the JAX
-package's stream, and rbg, drawn by the device's own generator (the
-card's Philox).
+runs under both PRNG implementations (utils/prng.py), each the JAX
+package's stream bit for bit: threefry (int64 torch ops), and rbg, XLA's
+Philox words, drawn on the card by the Philox kernel with the sampler
+fused (csrc/philox_rbg.cu), so its lines time that kernel.
 
 Each op is timed as a pipelined block, as the JAX script does: `iters`
 calls back to back after one warm-up call, between two CUDA events, the
@@ -117,9 +118,10 @@ def run(device="cuda") -> dict:
 
     def pk_samples(key):
         k_u, k_e0, k_e1 = prng.split(key, 3).unbind(-2)
-        return (K.lift_signed(K.ternary_coeffs_key(k_u, (chunks, n)), q),
-                K.cbd_coeffs_key(k_e0, (chunks, n)),
-                K.cbd_coeffs_key(k_e1, (chunks, n)))
+        return (K.lift_signed(K.ternary_coeffs_key(k_u, (chunks, n),
+                                                   vmap=False), q),
+                K.cbd_coeffs_key(k_e0, (chunks, n), vmap=False),
+                K.cbd_coeffs_key(k_e1, (chunks, n), vmap=False))
 
     for impl in prng.IMPLS:
         key = prng.key(0, impl, dev)
@@ -148,11 +150,11 @@ def run(device="cuda") -> dict:
     for impl in prng.IMPLS:
         key = prng.key(3, impl, dev)
         line(f"[sym] uniform a ({impl})", lambda: K.uniform_mod_q_key(
-            key, (sym_chunks, chain, n), moduli))
+            key, (sym_chunks, chain, n), moduli, vmap=False))
     for impl in prng.IMPLS:
         key = prng.key(4, impl, dev)
         line(f"[sym] cbd error ({impl})", lambda: K.lift_signed(
-            K.cbd_coeffs_key(key, (sym_chunks, n)), q))
+            K.cbd_coeffs_key(key, (sym_chunks, n), vmap=False), q))
     xh = K.uniform_mod_q(gen, (sym_chunks, chain, n), moduli)
     line("[sym] ntt", lambda: ntt_mod.ntt(xh, tb))
     line("[sym] a*s + w", lambda: modops.add_mod(modops.mul_mod_shoup(

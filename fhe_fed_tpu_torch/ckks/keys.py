@@ -5,16 +5,20 @@ residues int32, companions int64 (rns/modops.py). Two families of samplers,
 with the same distributions:
 
   * `uniform_mod_q`, `ternary_coeffs`, `cbd_coeffs` draw from an explicit
-    torch.Generator, on the generator's device (the port's own streams);
-  * the `*_tf` forms and `uniform_mod_q_xor2` draw from threefry keys
-    (utils/threefry.py) on the key's device and follow
-    fhe_fed_tpu.ckks.keys line for line, so they give the JAX package's
-    samples bit for bit; a batch of keys (..., 2) samples in one pass.
-
-The `*_key` forms take a key of either implementation (utils/prng.py): a
-threefry key goes to the `*_tf` form; an rbg key, the JAX package's
-sampler on its accelerator, draws with the Generator form, one Generator
-per key of the batch (prng.draw), on the key's device.
+    torch.Generator, on the generator's device (the port's own streams,
+    for `keygen(ctx, generator)`);
+  * the `*_key` forms draw under a key of either implementation
+    (utils/prng.py) and follow fhe_fed_tpu.ckks.keys line for line, so
+    they give the JAX package's samples bit for bit: the same functions of
+    the words (`uniform_from_words`, `ternary_from_words`,
+    `cbd_from_words`) over threefry's words (the `*_tf` forms,
+    utils/threefry.py) or rbg's (XLA's Philox). Under an rbg key on the
+    card the words and the sampler run as one kernel
+    (utils/philox_rbg.py); on the CPU through `prng.bits`. A key batch
+    (..., W) draws each key's stream, or with `vmap=True` as a `jax.vmap`
+    of the JAX sampler draws (prng.batch_rule): the caller says which, as
+    the JAX function it mirrors does. `uniform_mod_q_xor2` is threefry
+    only (the wire seed's a-stream).
 
 `keygen` is a sampling step followed by the deterministic `keygen_core`,
 which takes the samples as arguments. Given an int seed it splits
@@ -32,7 +36,7 @@ import torch
 
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
-from ..utils import prng, threefry
+from ..utils import philox_rbg, prng, threefry
 from .params import CkksContext
 
 _CBD_BITS = 20  # centered binomial with variance _CBD_BITS / 2
@@ -85,16 +89,17 @@ def cbd_coeffs(gen: torch.Generator, shape) -> torch.Tensor:
                       device=gen.device)
     b = torch.randint(0, 1 << _CBD_BITS, shape, generator=gen,
                       device=gen.device)
-    return (_popcount20(a) - _popcount20(b)).to(torch.int32)
+    return cbd_from_words(a, b)
 
 
-def _reduce_bits_mod_q(hi: torch.Tensor, lo: torch.Tensor,
+def uniform_from_words(hi: torch.Tensor, lo: torch.Tensor,
                        moduli) -> torch.Tensor:
     """(hi * 2**32 + lo) mod q_l for uniform 32-bit words (..., L, n) held
-    in int64; bias < 2**-33. Both words are first brought below q (at most
-    three subtractions each, every q > 2**30): mul_mod_shoup is exact in
-    int64 only for x < 2**31, and [hi]_q * 2**32 mod q is the canonical
-    residue the JAX package's u32 Shoup multiply gives for the full word."""
+    in int64, int32; bias < 2**-33 (the JAX package's _reduce_bits_mod_q).
+    Both words are first brought below q (at most three subtractions each,
+    every q > 2**30): mul_mod_shoup is exact in int64 only for x < 2**31,
+    and [hi]_q * 2**32 mod q is the canonical residue the JAX package's u32
+    Shoup multiply gives for the full word."""
     L = hi.shape[-2]
     qs = np.asarray(moduli[:L], dtype=np.int64)
     p32 = (1 << 32) % qs
@@ -106,17 +111,28 @@ def _reduce_bits_mod_q(hi: torch.Tensor, lo: torch.Tensor,
     hi_red = modops.mul_mod_shoup(
         modops.reduce_u32(hi, q), col(p32),
         col(modops.shoup_precompute(p32, qs)), q)
-    return modops.add_mod(hi_red, modops.reduce_u32(lo, q), q)
+    return modops.add_mod(hi_red, modops.reduce_u32(lo, q), q).to(
+        torch.int32)
+
+
+def ternary_from_words(w: torch.Tensor) -> torch.Tensor:
+    """bits % 3 - 1, int32: ternary {-1, 0, 1}."""
+    return (w % 3 - 1).to(torch.int32)
+
+
+def cbd_from_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """popcount(a) - popcount(b) over the low 20 bits of two words, int32."""
+    mask = (1 << _CBD_BITS) - 1
+    return (_popcount20(a & mask) - _popcount20(b & mask)).to(torch.int32)
 
 
 def uniform_mod_q_tf(key: torch.Tensor, shape, moduli) -> torch.Tensor:
     """Threefry form of uniform_mod_q: residues (*key batch, *shape) in
     [0, q_l), int32, for shape (..., L, n); 64 bits per element,
-    r = (hi * 2**32 + lo) mod q."""
+    r = (hi * 2**32 + lo) mod q, hi and lo under split(key)."""
     k1, k2 = threefry.split(key).unbind(-2)
-    return _reduce_bits_mod_q(threefry.bits(k1, shape),
-                              threefry.bits(k2, shape),
-                              moduli).to(torch.int32)
+    return uniform_from_words(threefry.bits(k1, shape),
+                              threefry.bits(k2, shape), moduli)
 
 
 def uniform_mod_q_xor2(key_a: torch.Tensor, key_b: torch.Tensor, shape,
@@ -128,44 +144,63 @@ def uniform_mod_q_xor2(key_a: torch.Tensor, key_b: torch.Tensor, shape,
     k1b, k2b = threefry.split(key_b).unbind(-2)
     hi = threefry.bits(k1a, shape).bitwise_xor_(threefry.bits(k1b, shape))
     lo = threefry.bits(k2a, shape).bitwise_xor_(threefry.bits(k2b, shape))
-    return _reduce_bits_mod_q(hi, lo, moduli).to(torch.int32)
+    return uniform_from_words(hi, lo, moduli)
 
 
 def ternary_coeffs_tf(key: torch.Tensor, shape) -> torch.Tensor:
     """Threefry form of ternary_coeffs: bits % 3 - 1, int32."""
-    return (threefry.bits(key, shape) % 3 - 1).to(torch.int32)
+    return ternary_from_words(threefry.bits(key, shape))
 
 
 def cbd_coeffs_tf(key: torch.Tensor, shape) -> torch.Tensor:
     """Threefry form of cbd_coeffs: popcount(a) - popcount(b) over the low
     20 bits of two words drawn from split(key)."""
     k1, k2 = threefry.split(key).unbind(-2)
-    mask = (1 << _CBD_BITS) - 1
-    a = threefry.bits(k1, shape).bitwise_and_(mask)
-    b = threefry.bits(k2, shape).bitwise_and_(mask)
-    return (_popcount20(a) - _popcount20(b)).to(torch.int32)
+    return cbd_from_words(threefry.bits(k1, shape), threefry.bits(k2, shape))
 
 
-def uniform_mod_q_key(key: torch.Tensor, shape, moduli) -> torch.Tensor:
-    """uniform_mod_q under a key of either implementation: residues
-    (*key batch, *shape) in [0, q_l), int32."""
+def _rbg_pair(key: torch.Tensor, shape, vmap: bool):
+    """An rbg draw's (key, shape) under the batch rule, and its split."""
+    key, shape = prng.batch_rule(key, shape, vmap)
+    k1, k2 = prng.split(key).unbind(-2)
+    return key, shape, k1.contiguous(), k2.contiguous()
+
+
+def uniform_mod_q_key(key: torch.Tensor, shape, moduli, *,
+                      vmap: bool) -> torch.Tensor:
+    """fhe_fed_tpu.ckks.keys.uniform_mod_q under a key of either
+    implementation: residues (*key batch, *shape) in [0, q_l), int32.
+    `vmap`: the key batch stands for a jax.vmap (prng.batch_rule)."""
     if prng.impl_of(key) == "threefry":
         return uniform_mod_q_tf(key, shape, moduli)
-    return prng.draw(key, shape, lambda g, s: uniform_mod_q(g, s, moduli))
+    key, shape, k1, k2 = _rbg_pair(key, shape, vmap)
+    if key.is_cuda:
+        return philox_rbg.uniform_mod_q(k1, k2, shape, moduli)
+    return uniform_from_words(prng.bits(k1, shape), prng.bits(k2, shape),
+                              moduli)
 
 
-def ternary_coeffs_key(key: torch.Tensor, shape) -> torch.Tensor:
-    """ternary_coeffs under a key of either implementation."""
+def ternary_coeffs_key(key: torch.Tensor, shape, *,
+                       vmap: bool) -> torch.Tensor:
+    """fhe_fed_tpu.ckks.keys.ternary_coeffs under a key of either
+    implementation; `vmap` as uniform_mod_q_key."""
     if prng.impl_of(key) == "threefry":
         return ternary_coeffs_tf(key, shape)
-    return prng.draw(key, shape, ternary_coeffs)
+    key, shape = prng.batch_rule(key, shape, vmap)
+    if key.is_cuda:
+        return philox_rbg.ternary(key.contiguous(), shape)
+    return ternary_from_words(prng.bits(key, shape))
 
 
-def cbd_coeffs_key(key: torch.Tensor, shape) -> torch.Tensor:
-    """cbd_coeffs under a key of either implementation."""
+def cbd_coeffs_key(key: torch.Tensor, shape, *, vmap: bool) -> torch.Tensor:
+    """fhe_fed_tpu.ckks.keys.cbd_coeffs under a key of either
+    implementation; `vmap` as uniform_mod_q_key."""
     if prng.impl_of(key) == "threefry":
         return cbd_coeffs_tf(key, shape)
-    return prng.draw(key, shape, cbd_coeffs)
+    key, shape, k1, k2 = _rbg_pair(key, shape, vmap)
+    if key.is_cuda:
+        return philox_rbg.cbd(k1, k2, shape)
+    return cbd_from_words(prng.bits(k1, shape), prng.bits(k2, shape))
 
 
 def lift_signed(coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,12 @@ arguments. The step draws from `rng`, which is either
 
   * a torch.Generator: the port's own streams, or
   * a key (utils/prng.py), split as the JAX function of the same name
-    splits it, line for line: a threefry key (2,) gives the JAX package's
-    ciphertext bit for bit; an rbg key (4,), the JAX package's sampler on
-    its accelerator, draws its leaves from Generators on the key's device
-    (keys.*_key).
+    splits it, line for line, so a threefry key (2,) and an rbg key (4,)
+    both give the JAX package's ciphertext bit for bit (keys.*_key; under
+    rbg on the card the Philox kernel draws). A stacked encrypt gives
+    client i the key split(key, K)[i] and draws as JAX's `jax.vmap` over
+    the clients draws: under rbg every client's samples come from the
+    first client's key, at shape (K, ...) (prng.batch_rule).
 
 Kernels on the path: the NTT (K1 or K2, via ntt/ntt.py) in encrypt,
 decrypt and rescale, the weighted sum (K3, ckks/pallas_agg.py) and the
@@ -84,7 +86,8 @@ def _per_key_shape(key: torch.Tensor, shape) -> tuple:
 
 def _sym_samples(ctx: CkksContext, rng, shape):
     """(a_hat (..., L, N), e (..., N)) for a secret-key encrypt of values
-    `shape` (..., N): k_a, k_e = split(key), as _encrypt_sym_impl."""
+    `shape` (..., N): k_a, k_e = split(key), as _encrypt_sym_impl; a key
+    batch is the stacked encrypt's jax.vmap over the clients."""
     L = ctx.params.chain_len
     moduli = ctx.params.moduli
     if isinstance(rng, torch.Generator):
@@ -93,24 +96,27 @@ def _sym_samples(ctx: CkksContext, rng, shape):
                 cbd_coeffs(rng, tuple(shape)))
     *lead, n = _per_key_shape(rng, shape)
     k_a, k_e = prng.split(rng).unbind(-2)
-    return (uniform_mod_q_key(k_a, (*lead, L, n), moduli),
-            cbd_coeffs_key(k_e, (*lead, n)))
+    return (uniform_mod_q_key(k_a, (*lead, L, n), moduli, vmap=True),
+            cbd_coeffs_key(k_e, (*lead, n), vmap=True))
 
 
 def _pk_samples(rng, shape):
     """(u, e0, e1), each (..., N), for a public-key encrypt of polynomials
-    `shape` (..., N): k_u, k_e0, k_e1 = split(key, 3), as _encrypt_pt_impl."""
+    `shape` (..., N): k_u, k_e0, k_e1 = split(key, 3), as _encrypt_pt_impl;
+    a key batch is the stacked encrypt's jax.vmap over the clients."""
     if isinstance(rng, torch.Generator):
         return (ternary_coeffs(rng, shape), cbd_coeffs(rng, shape),
                 cbd_coeffs(rng, shape))
     per = _per_key_shape(rng, shape)
     k_u, k_e0, k_e1 = prng.split(rng, 3).unbind(-2)
-    return (ternary_coeffs_key(k_u, per), cbd_coeffs_key(k_e0, per),
-            cbd_coeffs_key(k_e1, per))
+    return (ternary_coeffs_key(k_u, per, vmap=True),
+            cbd_coeffs_key(k_e0, per, vmap=True),
+            cbd_coeffs_key(k_e1, per, vmap=True))
 
 
 def _split_clients(rng, k: int):
-    """A stacked encrypt gives client i the key split(key, K)[i]."""
+    """A stacked encrypt gives client i the key split(key, K)[i] (drawn
+    as JAX's vmap over the clients draws, _sym_samples)."""
     return rng if isinstance(rng, torch.Generator) else prng.split(rng, k)
 
 
@@ -165,12 +171,13 @@ def encrypt_symmetric_seeded(ctx: CkksContext, sk: SecretKey,
                              scale: float | None = None) -> SeededCiphertext:
     """Secret-key encrypt of (chunks, N) f32 with c1 elided. The wire seed
     is bits(key, (4,)), the error key fold_in(key, 0x5eed), under the key's
-    implementation; `a` is expanded from the seed as expand_seeded does,
-    from the threefry pair of its halves whatever the key, so any server
-    expands it alike."""
+    implementation (JAX's seed under either); `a` is expanded from the seed
+    as expand_seeded does, from the threefry pair of its halves whatever
+    the key, so any server expands it alike."""
     scale = _scale(ctx, scale)
     seed = prng.bits(rng_key, (4,))
-    e = cbd_coeffs_key(prng.fold_in(rng_key, 0x5eed), values.shape)
+    e = cbd_coeffs_key(prng.fold_in(rng_key, 0x5eed), values.shape,
+                       vmap=False)
     chunks, n = values.shape
     a_hat = uniform_mod_q_xor2(seed[:2], seed[2:],
                                (chunks, ctx.params.chain_len, n),

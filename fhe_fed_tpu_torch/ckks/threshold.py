@@ -20,7 +20,12 @@ function of the same name, so a seed gives the JAX package's residues bit
 for bit. An int root seed and the public common seed are threefry keys,
 as `jax.random.key(seed)` is on any device; a caller's key (the helper's
 session key, a decryption's smudging keys) may be rbg, whose streams then
-follow it (keys.*_key). The per-party functions are the protocol (what
+follow it (keys.*_key), bit for bit with JAX's rbg. Where the JAX
+package vmaps a draw over the parties (the smudging of the stacked
+partial decryptions, the partial-Galois noise), the port draws under JAX's
+batching rule: under rbg every party's noise comes from the first party's
+key (prng.batch_rule); where it loops over the parties, each party draws
+its own stream. The per-party functions are the protocol (what
 each party computes and publishes); the batched ceremonies compute the
 same residues with the party axis stacked: one NTT batch and one Shoup
 multiply over all parties, Shoup companions computed on the device.
@@ -78,11 +83,12 @@ def _streams(root: torch.Tensor, tag: int, n: int) -> torch.Tensor:
     return torch.stack([_stream(root, tag, i) for i in range(n)])
 
 
-def _noise_hat(ctx: CkksContext, keys: torch.Tensor, shape) -> torch.Tensor:
+def _noise_hat(ctx: CkksContext, keys: torch.Tensor, shape, *,
+               vmap: bool) -> torch.Tensor:
     """NTT(lift(cbd(key, shape))) over all L limbs: (*keys batch, *shape[:-1],
-    L, N), one NTT batch."""
-    return ntt_mod.ntt(lift_signed(cbd_coeffs_key(keys, shape), ctx.q),
-                       ctx.tables)
+    L, N), one NTT batch; `vmap` as keys.cbd_coeffs_key."""
+    return ntt_mod.ntt(lift_signed(cbd_coeffs_key(keys, shape, vmap=vmap),
+                                   ctx.q), ctx.tables)
 
 
 def _shoup(ctx: CkksContext, w: torch.Tensor) -> torch.Tensor:
@@ -113,7 +119,8 @@ def _common_rows(ctx: CkksContext, common_seed: int) -> torch.Tensor:
 def party_secret(ctx: CkksContext, rng_key: torch.Tensor) -> SecretKey:
     """One party's additive share s_i (ternary, all limbs)."""
     s_hat = ntt_mod.ntt(
-        lift_signed(ternary_coeffs_key(rng_key, (ctx.ring_dim,)), ctx.q),
+        lift_signed(ternary_coeffs_key(rng_key, (ctx.ring_dim,),
+                                       vmap=False), ctx.q),
         ctx.tables)
     return SecretKey(s=s_hat, s_shoup=_shoup(ctx, s_hat))
 
@@ -123,7 +130,7 @@ def init_public_key(ctx: CkksContext, sk: SecretKey,
     """Party 0: pk_0 = (-a*s_0 + e_0, a)."""
     k_a, k_e = prng.split(rng_key).unbind(-2)
     a = uniform_mod_q_key(k_a, (ctx.num_limbs, ctx.ring_dim),
-                          ctx.params.moduli)
+                          ctx.params.moduli, vmap=False)
     return _extend(ctx, a, None, sk, k_e)
 
 
@@ -135,7 +142,7 @@ def extend_public_key(ctx: CkksContext, pk_prev: PublicKey, sk: SecretKey,
 
 def _extend(ctx, a, b_prev, sk, k_e) -> PublicKey:
     qb = ctx.q[:, None]
-    e_hat = _noise_hat(ctx, k_e, (ctx.ring_dim,))
+    e_hat = _noise_hat(ctx, k_e, (ctx.ring_dim,), vmap=False)
     a_s = modops.mul_mod(a, sk.s, qb)
     b = modops.add_mod(modops.neg_mod(a_s, qb), e_hat, qb)
     if b_prev is not None:
@@ -153,7 +160,8 @@ def multiparty_keygen(ctx: CkksContext, n_parties: int, seed=0
     sks = [party_secret(ctx, _stream(root, _TAG_SECRET, i))
            for i in range(n_parties)]
     a = uniform_mod_q_key(_stream(root, _TAG_PK_A, 0),
-                          (ctx.num_limbs, ctx.ring_dim), ctx.params.moduli)
+                          (ctx.num_limbs, ctx.ring_dim), ctx.params.moduli,
+                          vmap=False)
     pk = _extend(ctx, a, None, sks[0], _stream(root, _TAG_PK_NOISE, 0))
     for i in range(1, n_parties):
         pk = extend_public_key(ctx, pk, sks[i],
@@ -166,14 +174,17 @@ def multiparty_keygen(ctx: CkksContext, n_parties: int, seed=0
 # ---------------------------------------------------------------------------
 
 def _smudge(ctx: CkksContext, rng_key: torch.Tensor, chunks: int,
-            live: int) -> torch.Tensor:
+            live: int, *, vmap: bool) -> torch.Tensor:
     """Wide flooding noise in the evaluation domain: (*keys batch, chunks,
-    live, N). cbd * 2**20 + cbd stays below 2**31 in magnitude; its residue
-    takes the sign of the divisor (torch.remainder, as the JAX `%`)."""
+    live, N); `vmap`: a key batch is JAX's vmap of `_smudge` over the
+    parties (_partials_impl). cbd * 2**20 + cbd stays below 2**31 in
+    magnitude; its residue takes the sign of the divisor (torch.remainder,
+    as the JAX `%`)."""
     n = ctx.ring_dim
     k1, k2 = prng.split(rng_key).unbind(-2)
-    e = (cbd_coeffs_key(k1, (chunks, n)).to(torch.int64)
-         * (1 << (_SMUDGE_BITS // 2)) + cbd_coeffs_key(k2, (chunks, n)))
+    e = (cbd_coeffs_key(k1, (chunks, n), vmap=vmap).to(torch.int64)
+         * (1 << (_SMUDGE_BITS // 2))
+         + cbd_coeffs_key(k2, (chunks, n), vmap=vmap))
     r = torch.remainder(e[..., None, :], ctx.q[:live, None]).to(_I32)
     return ntt_mod.ntt(r, ctx.tables.slice_limbs(0, live))
 
@@ -187,7 +198,7 @@ def partial_decrypt_lead(ctx: CkksContext, sk: SecretKey,
     c0, c1 = ct.data.unbind(dim=-3)
     t = modops.mul_mod_shoup(c1, sk.s[:live], sk.s_shoup[:live], qb)
     t = modops.add_mod(c0, t, qb)
-    e = _smudge(ctx, rng_key, ct.num_chunks, live)
+    e = _smudge(ctx, rng_key, ct.num_chunks, live, vmap=False)
     return modops.add_mod(t, e, qb).to(_I32)
 
 
@@ -199,7 +210,7 @@ def partial_decrypt_main(ctx: CkksContext, sk: SecretKey,
     qb = ctx.q[:live, None]
     t = modops.mul_mod_shoup(ct.data[:, 1], sk.s[:live], sk.s_shoup[:live],
                              qb)
-    e = _smudge(ctx, rng_key, ct.num_chunks, live)
+    e = _smudge(ctx, rng_key, ct.num_chunks, live, vmap=False)
     return modops.add_mod(t, e, qb).to(_I32)
 
 
@@ -233,7 +244,7 @@ def partial_galois_key(ctx: CkksContext, sk: SecretKey, g: int,
     key = ks_mod.make_kswitch_key_core(
         ctx, sk, ks_mod.automorphism(sk.s, n, g),
         _common_rows(ctx, common_seed),
-        cbd_coeffs_key(rng_key, (ctx.params.chain_len, n)))
+        cbd_coeffs_key(rng_key, (ctx.params.chain_len, n), vmap=False))
     return dataclasses.replace(key, b_shoup=None, a_shoup=None)
 
 
@@ -247,10 +258,10 @@ def partial_relin_round2(ctx: CkksContext, sk: SecretKey,
                          d_joint: ks_mod.KSwitchKey,
                          rng_key: torch.Tensor) -> ks_mod.KSwitchKey:
     """Round-2 share: both rows of the combined round-1 key times s_i, plus
-    fresh noise (k0 for b, k1 for a)."""
+    fresh noise (k0 for b, k1 for a), each its own stream."""
     qb = ctx.q[:, None]
     e0, e1 = _noise_hat(ctx, prng.split(rng_key),
-                        (ctx.params.chain_len, ctx.ring_dim))
+                        (ctx.params.chain_len, ctx.ring_dim), vmap=False)
     b = modops.add_mod(
         modops.mul_mod_shoup(d_joint.b, sk.s[None], sk.s_shoup[None], qb),
         e0, qb).to(_I32)
@@ -327,18 +338,21 @@ def stack_keys(keys) -> torch.Tensor:
 def multiparty_keygen_batched(ctx: CkksContext, n_parties: int, seed=0
                               ) -> tuple[PartySecrets, PublicKey]:
     """The chained keygen with the party axis stacked: every secret and
-    noise polynomial in one NTT batch. The residues of
+    noise polynomial in one NTT batch, each party its own stream (JAX
+    loops over the parties). The residues of
     multiparty_keygen(ctx, n_parties, seed)."""
     root = _root_key(seed, ctx.device)
     n, L = ctx.ring_dim, ctx.num_limbs
     qb = ctx.q[:, None]
-    s_coef = ternary_coeffs_key(_streams(root, _TAG_SECRET, n_parties), (n,))
-    e_coef = cbd_coeffs_key(_streams(root, _TAG_PK_NOISE, n_parties), (n,))
+    s_coef = ternary_coeffs_key(_streams(root, _TAG_SECRET, n_parties),
+                                (n,), vmap=False)
+    e_coef = cbd_coeffs_key(_streams(root, _TAG_PK_NOISE, n_parties), (n,),
+                            vmap=False)
     s_hat, e_hat = ntt_mod.ntt(
         lift_signed(torch.stack([s_coef, e_coef]), ctx.q),
         ctx.tables)                                      # (P, L, N) each
     a = uniform_mod_q_key(_stream(root, _TAG_PK_A, 0), (L, n),
-                          ctx.params.moduli)
+                          ctx.params.moduli, vmap=False)
     terms = modops.add_mod(modops.neg_mod(modops.mul_mod(a, s_hat, qb), qb),
                            e_hat, qb)
     b = _sum_parties(terms, qb).to(_I32)
@@ -349,13 +363,15 @@ def multiparty_keygen_batched(ctx: CkksContext, n_parties: int, seed=0
 
 def _partials(ctx: CkksContext, secrets: PartySecrets, data: torch.Tensor,
               rng_keys: torch.Tensor) -> torch.Tensor:
-    """(P, chunks, live, N) int64 partial decryptions; party 0 leads."""
+    """(P, chunks, live, N) int64 partial decryptions; party 0 leads. The
+    smudging is JAX's vmap over the parties' keys (_partials_impl)."""
     live = data.shape[-2]
     qb = ctx.q[:live, None]
     c0, c1 = data.unbind(dim=-3)
     t = modops.mul_mod_shoup(c1, secrets.s[:, None, :live],
                              secrets.s_shoup[:, None, :live], qb)
-    parts = modops.add_mod(t, _smudge(ctx, rng_keys, data.shape[0], live), qb)
+    parts = modops.add_mod(
+        t, _smudge(ctx, rng_keys, data.shape[0], live, vmap=True), qb)
     parts[0] = modops.add_mod(parts[0], c0, qb)
     return parts
 
@@ -364,8 +380,9 @@ def threshold_decrypt(ctx: CkksContext, secrets: PartySecrets,
                       ct: ckks_ops.Ciphertext,
                       rng_keys: torch.Tensor) -> torch.Tensor:
     """Every party's MultipartyDecryptLead / Main and the fusion, stacked:
-    (chunks, N) f32. rng_keys (P, W) are the fresh smudging streams; party
-    0 leads. The residues of the per-party path under the same keys."""
+    (chunks, N) f32. rng_keys (P, W) are the fresh smudging streams, drawn
+    as JAX's vmap over the parties; party 0 leads. Under threefry the
+    residues of the per-party path under the same keys."""
     return _fuse(ctx, _partials(ctx, secrets, ct.data, rng_keys), ct.scale)
 
 
@@ -380,8 +397,9 @@ def multiparty_relin_key_batched(ctx: CkksContext, secrets: PartySecrets,
                                  common_seed: int = 0,
                                  seed=0) -> ks_mod.KSwitchKey:
     """The two-round relinearisation ceremony with the party axis stacked:
-    all 3P noise polynomials of both rounds in one NTT batch. The residues
-    of multiparty_relin_key under the same seeds."""
+    all 3P noise polynomials of both rounds in one NTT batch, each party
+    its own streams (JAX loops over the parties). The residues of
+    multiparty_relin_key under the same seeds."""
     root = _root_key(seed, ctx.device)
     chain, P = ctx.params.chain_len, secrets.n_parties
     qb = ctx.q[:, None]
@@ -389,7 +407,8 @@ def multiparty_relin_key_batched(ctx: CkksContext, secrets: PartySecrets,
     r2_keys = prng.split(_streams(root, _TAG_RELIN_R2, P))       # (P, 2, W)
     keys = torch.stack([_streams(root, _TAG_RELIN_R1, P),
                         r2_keys[:, 0], r2_keys[:, 1]])           # (3, P, W)
-    e1_hat, e0_r2, e1_r2 = _noise_hat(ctx, keys, (chain, ctx.ring_dim))
+    e1_hat, e0_r2, e1_r2 = _noise_hat(ctx, keys, (chain, ctx.ring_dim),
+                                      vmap=False)
     s = secrets.s[:, None]                               # (P, 1, L, N)
     s_sh = secrets.s_shoup[:, None]
     # Round 1: -a*s_i + e_i + P*s_i on the gadget diagonal, summed.
@@ -408,11 +427,13 @@ def multiparty_galois_key_batched(ctx: CkksContext, secrets: PartySecrets,
                                   rng_keys: torch.Tensor
                                   ) -> ks_mod.KSwitchKey:
     """The joint Galois key ceremony with the party axis stacked; rng_keys
-    (P, W). The residues of per-party partial_galois_key +
+    (P, W), drawn as JAX's vmap over them (_multiparty_galois_impl). Under
+    threefry the residues of per-party partial_galois_key +
     combine_switch_key_shares under the same keys."""
     qb = ctx.q[:, None]
     a = _common_rows(ctx, common_seed)
-    e_hat = _noise_hat(ctx, rng_keys, (ctx.params.chain_len, ctx.ring_dim))
+    e_hat = _noise_hat(ctx, rng_keys, (ctx.params.chain_len, ctx.ring_dim),
+                       vmap=True)
     a_s = modops.mul_mod_shoup(a, secrets.s[:, None], secrets.s_shoup[:, None],
                                qb)
     b = modops.add_mod(modops.neg_mod(a_s, qb), e_hat, qb)

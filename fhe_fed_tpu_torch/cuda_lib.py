@@ -47,6 +47,7 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # out, x, w1, w2, mid_pair, limb_consts(host), B, L, n1, n2, forward,
     # stream
@@ -60,6 +61,8 @@ _SIGNATURES = {
     "fhe_weighted_sum": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # out, x, consts(device), words, live, chunks, n, stream
     "fhe_decode_crt": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # out, k1, k2, limb_consts(host), limbs, n, epilogue, nkeys, per, stream
+    "fhe_philox_rbg": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P),
 }
 
 

@@ -23,12 +23,12 @@ The helper's PRNG stream is the key key(seed) of its implementation
 (utils/prng.py), advanced by split, as the JAX class uses it. The JAX
 class picks the implementation by backend: rbg on its accelerator,
 threefry elsewhere; so does this one by device (prng.default_impl): rbg
-on the card, its leaves drawn by the card's Philox, threefry on the CPU.
-Under threefry, with the same seed, both classes write the same key files
-and the same ciphertext bytes, on the CPU and on the card alike. Under
-rbg the key tree is JAX's but the draws are the device's own, so the
-bytes are the port's; an FFTS blob's `a` comes from threefry whatever the
-session key, so any server expands it.
+on the card, threefry on the CPU. Under either, with the same seed, both
+classes write the same key files and the same ciphertext bytes (the JAX
+class under FHE_FED_TPU_PRNG=rbg for rbg), on the CPU and on the card
+alike: rbg's draws are XLA's Philox stream, drawn on the card by the
+Philox kernel (utils/philox_rbg.py). An FFTS blob's `a` comes from
+threefry whatever the session key, so any server expands it.
 
 Chunking follows the reference: ceil(size / capacity) chunks, the decrypt
 tail rule, `dense_pack` packing the full ring per chunk, `packing="slots"`

@@ -13,11 +13,14 @@ a deployment runs, one machine per share.
     agg = fhe_fedavg(helper, client_state_dicts, weights)
 
 The cryptodir (cryptocontext.txt JSON with `parties`, key-public.txt,
-key-share-{i}.txt) and every blob are the JAX class's bytes for the same
-seed under threefry (the CPU's default, or prng="threefry"), so either
-package reads what the other writes. On the card the session key is rbg,
-as CKKS's: the keygen ceremony, the encrypts and the smudging draw from
-the card's Philox (the JAX class inherits rbg on its accelerator).
+key-share-{i}.txt), every blob and every partial decryption are the JAX
+class's bytes for the same seed under either PRNG: threefry (the CPU's
+default, or prng="threefry") and rbg (the card's default, or
+prng="rbg"; the JAX class under FHE_FED_TPU_PRNG=rbg, its choice on its
+accelerator), so either package reads what the other writes. Under rbg
+the keygen ceremony, the encrypts and the smudging draw XLA's Philox
+stream, on the card through the Philox kernel; the stacked decryption's
+smudging follows JAX's vmap rule (ckks/threshold.py).
 """
 
 from __future__ import annotations

@@ -31,6 +31,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..ckks import ops as ckks_ops
 from ..ckks.keys import PublicKey, SecretKey
 from ..ckks.params import CkksContext
+from ..utils import prng
 from .multihost import axis_coord, block, named_mesh
 
 # Chunk-rows (clients x chunks) a full_fed_step encrypts at once: the
@@ -88,6 +89,10 @@ def _encrypt_clients(ctx: CkksContext, mesh: DeviceMesh, pk: PublicKey,
     GLOBAL (chunks, N) shape, as the JAX step's vmapped encrypt_one, and
     the rank keeps its chunk rows; clients go in groups of about
     ENCRYPT_ROWS chunk-rows."""
+    if prng.impl_of(rng_keys) != "threefry":
+        # JAX's vmap draws every client's rbg samples from the GLOBAL
+        # batch's first key, which the ranks holding other clients lack.
+        raise ValueError("full_fed_step takes threefry client keys")
     k_loc, c_loc, n = values.shape
     coord, size = axis_coord(mesh, "chunks")
     chunks = c_loc * size

@@ -16,37 +16,56 @@ shape, so the rule never takes one for an rbg key, and utils/threefry.py
 refuses an rbg key.
 
 rbg's key tree is threefry on each half, bit for bit with jax. Its draws
-are the device's own generator (in JAX, XLA's RngBitGenerator): here a
-torch.Generator on the key's device, seeded from the key's four words
-(w0, w1, w2, w3) as
+are XLA's RngBitGenerator, which `jax.random.bits` reaches through
+`lax.rng_bit_generator` (`_rbg_random_bits`) and which XLA expands to
+Philox4x32-10; `bits` gives the same words. For key words
+(w0, w1, w2, w3), with s0 = w0 | w1 << 32 and s1 = w2 | w3 << 32:
 
-    seed = y0 * 2**32 + y1,   (y0, y1) = threefry2x32(key (w0, w1),
-                                                      counter (w2, w3)),
+  * Philox block i runs on the 128-bit counter C_i = (s0 << 64) + s1 + i,
+    as the words (lo32, hi32) of its low 64 bits and then of its high 64
+    bits (the low half carries into the high one), under the Philox key
+    (w0, w1);
+  * word j of the row-major draw is word j mod 4 of block j // 4.
 
-so every bit of the key reaches the 64-bit seed. The words are read to
-the host for that, one read per call of `generators` (on the card a
-stream synchronise), and hashed there (threefry.threefry2x32_words). On the card the
-Generator is Philox4x32-10 at offset 0. On the CPU torch's Generator is
-MT19937, which keeps only the seed's low 32 bits (y1): rbg draws on the
-CPU are the port's own reproducible stream, not the card's, and neither
-is JAX's. A batch of keys draws one Generator per key and stacks the
-results, as JAX vmaps `_rbg_random_bits`. An rbg key on a CUDA device
-draws on the card; nothing falls back to the CPU or to threefry.
+`philox_bits` is that stream in int64 torch ops, the plain version; an
+rbg key on the card draws through the kernel csrc/philox_rbg.cu
+(utils/philox_rbg.py), which reads the key words from device memory.
+Nothing falls back: a CUDA key launches the kernel or raises.
+
+A batch of rbg keys (..., 4) draws one of two ways, as the JAX function
+the caller mirrors draws:
+
+  * each key its own stream (`vmap=False`): a Python loop over keys in
+    JAX, or a single key;
+  * under `jax.vmap` (`vmap=True`): JAX's batching rule for
+    rng_bit_generator (jax/_src/lax/control_flow/loops.py,
+    `_rng_bit_generator_batching_rule`) draws the whole batch from its
+    FIRST key, with shape (*batch, *shape). Nested vmaps reduce to the
+    first key of the flattened batch (`batch_rule`).
+
+threefry's batching draws each key's own stream either way.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from . import threefry
+from . import philox_rbg, threefry
 
 IMPLS = ("threefry", "rbg")
+
+_M = 0xFFFFFFFF
+# Philox4x32-10's multipliers and Weyl key increments.
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def default_impl(device: torch.device | str) -> str:
     """The implementation a helper on `device` samples with when the
-    caller names none: rbg on the card (the device's own generator, as the
-    JAX package picks rbg on its accelerator), threefry elsewhere."""
+    caller names none: rbg on the card (as the JAX package picks rbg on
+    its accelerator), threefry elsewhere."""
     return "rbg" if torch.device(device).type == "cuda" else "threefry"
 
 
@@ -88,45 +107,69 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return threefry.fold_in(_halves(key), data).flatten(-2)
 
 
-def seeds(key: torch.Tensor) -> list[int]:
-    """The 64-bit Generator seed of each rbg key of the batch, in
-    row-major order (the rule in the module docstring)."""
+def batch_rule(key: torch.Tensor, shape, vmap: bool
+               ) -> tuple[torch.Tensor, tuple]:
+    """The (key, shape) a draw of `shape` under a key batch (..., W) runs:
+    unchanged, unless `vmap` and the keys are rbg, where JAX's batching
+    rule takes the batch's first key and the shape (*batch, *shape)."""
+    shape = tuple(shape)
+    if vmap and impl_of(key) == "rbg" and key.dim() > 1:
+        return key.reshape(-1, 4)[0], (*key.shape[:-1], *shape)
+    return key, shape
+
+
+def _mulhilo(x: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of x * m for words x < 2**32 held in int64 and
+    a 32-bit constant m. The product reaches 2**64, beyond int64: m is
+    split into 16-bit halves, each partial product below 2**48."""
+    lo_part = x * (m & 0xFFFF)
+    hi_part = x * (m >> 16)
+    t = lo_part + ((hi_part & 0xFFFF) << 16)
+    return (hi_part >> 16) + (t >> 32), t & _M
+
+
+def philox_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """The plain version of rbg's draw: the words XLA's RngBitGenerator
+    (Philox4x32-10, the layout in the module docstring) gives each rbg key
+    of the batch (..., 4), as int64 in [0, 2**32), shape
+    (*key.shape[:-1], *shape). Int64 torch ops on the key's device; no
+    host read."""
     if impl_of(key) != "rbg":
-        raise TypeError("only an rbg key seeds a Generator")
-    seeds = []
-    for w in key.reshape(-1, 4).tolist():
-        y0, y1 = threefry.threefry2x32_words(*w)
-        seeds.append((y0 << 32) | y1)
-    return seeds
-
-
-def generators(key: torch.Tensor) -> list[torch.Generator]:
-    """One torch.Generator on the key's device per rbg key of the batch,
-    in row-major order, each seeded from its key."""
-    gens = []
-    for s in seeds(key):
-        g = torch.Generator(device=key.device)
-        g.manual_seed(s)
-        gens.append(g)
-    return gens
-
-
-def draw(key: torch.Tensor, shape, fn) -> torch.Tensor:
-    """fn(generator, shape) under each rbg key of the batch, stacked:
-    (*key.shape[:-1], *result shape)."""
-    outs = [fn(g, tuple(shape)) for g in generators(key)]
-    return torch.stack(outs).reshape(key.shape[:-1] + outs[0].shape)
-
-
-def _words(gen: torch.Generator, shape) -> torch.Tensor:
-    return torch.randint(0, 1 << 32, shape, generator=gen, device=gen.device,
-                         dtype=torch.int64)
+        raise TypeError("philox_bits draws under an rbg key (..., 4)")
+    shape = tuple(shape)
+    n = math.prod(shape)
+    w = key.reshape(-1, 4).to(torch.int64)
+    blocks = -(-n // 4)
+    i = torch.arange(blocks, dtype=torch.int64, device=key.device)
+    # The 128-bit counter (s0 << 64) + s1 + i, word by word with carries.
+    t = w[:, 2:3] + i
+    c0 = t & _M
+    t = w[:, 3:4] + (t >> 32)
+    c1 = t & _M
+    t = w[:, 0:1] + (t >> 32)
+    c2 = t & _M
+    c3 = (w[:, 1:2] + (t >> 32)) & _M
+    k0, k1 = w[:, 0:1], w[:, 1:2]
+    for r in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _M
+        k1 = (k1 + _PHILOX_W[1]) & _M
+    out = torch.stack([c0, c1, c2, c3], dim=-1).reshape(w.shape[0], -1)
+    return out[:, :n].reshape((*key.shape[:-1], *shape))
 
 
 def bits(key: torch.Tensor, shape) -> torch.Tensor:
     """jax.random.bits(key, shape, uint32): uniform 32-bit words as int64
-    in [0, 2**32), shape (*key.shape[:-1], *shape). Threefry's words are
-    JAX's; rbg's come from the key's Generator."""
+    in [0, 2**32), bit for bit; a key batch (..., W) draws each key's
+    stream, shape (*batch, *shape) (`batch_rule` gives a vmapped draw's
+    key and shape). rbg keys on the card draw through the Philox kernel,
+    on the CPU through `philox_bits`."""
     if impl_of(key) == "threefry":
         return threefry.bits(key, shape)
-    return draw(key, shape, _words)
+    if key.is_cuda:
+        return philox_rbg.words(key.contiguous(), shape)
+    if key.device.type != "cpu":
+        raise ValueError(f"no rbg generator for {key.device}")
+    return philox_bits(key, shape)

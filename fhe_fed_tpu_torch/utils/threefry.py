@@ -64,22 +64,6 @@ def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
     return x0, x1
 
 
-def threefry2x32_words(k0: int, k1: int, x0: int, x1: int
-                       ) -> tuple[int, int]:
-    """threefry2x32 on one key and one counter as Python ints: the host's
-    form, a few microseconds where the tensor form costs a launch per
-    step."""
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0, x1 = (x0 + k0) & _M, (x1 + k1) & _M
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M
-            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M
-    return x0, x1
-
-
 def _counters(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
     idx = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=_I64,
                        device=device).reshape(tuple(shape))

@@ -6,13 +6,16 @@ the committed key fixtures, 3 clients, 2 chunks and blocks of 2 rounds:
 the cohort is bench.py's construction byte for byte; under
 prng="threefry" every round's ciphertexts, aggregates, decrypts and fused
 rounds equal the JAX package's for the same tag bit for bit (decrypted
-f32 compared as int32 bit patterns: tolerance 0); under prng="rbg" the
-round keys are jax.random.split(jax.random.key(tag, impl="rbg")) bit for
-bit, the rounds are reproducible per tag and decrypt within bench.py's
-1e-6; the JSON dict has bench.py's keys.
+f32 compared as int32 bit patterns: tolerance 0), and so they do under
+prng="rbg", bench.py's own choice (round keys
+jax.random.split(jax.random.key(tag, impl="rbg")), XLA's Philox draws),
+there also at full width: one round of the CNN's 3 x 1,663,370 values
+at 204 chunks; the rbg rounds are reproducible per tag and decrypt within
+bench.py's 1e-6; the JSON dict has bench.py's keys.
 """
 
 import ast
+import dataclasses
 import json
 import pathlib
 
@@ -137,25 +140,29 @@ def test_rbg_round_keys_are_jax_split(tag):
                                   np.asarray(want).astype(np.int64))
 
 
-@pytest.mark.parametrize("symmetric", [True, False])
-def test_threefry_round_equals_jax(pair, symmetric):
+def _jax_keys(tag, rounds, prng_name):
+    """bench.py:164's round keys under `prng_name`."""
+    impl = "rbg" if prng_name == "rbg" else "threefry2x32"
+    return jax.random.split(jax.random.key(tag, impl=impl), rounds)
+
+
+def _rounds_equal_jax(c, pair, jvals, prng_name, symmetric, tag, rounds):
     """Each round's cohort ciphertext, its weighted sum and its decrypt
     equal the JAX package's for the same tag: residues bit for bit,
     decrypted f32 bit for bit (tolerance 0)."""
-    c, jctx = pair["cohort"], pair["jctx"]
-    tag = TAGS[0]
-    cts = bench.encrypt_rounds(c, bench.round_rngs(tag, ROUNDS, "threefry",
+    jctx = pair["jctx"]
+    c = dataclasses.replace(c, prng=prng_name)
+    cts = bench.encrypt_rounds(c, bench.round_rngs(tag, rounds, prng_name,
                                                    CPU), symmetric)
     aggs = bench.aggregate_rounds(c, cts)
     outs = bench.decrypt_rounds(c, aggs)
-    keys = jax.random.split(jax.random.key(tag), ROUNDS)
-    for r in range(ROUNDS):
+    keys = _jax_keys(tag, rounds, prng_name)
+    for r in range(rounds):
         if symmetric:
-            jct = J_ops.encrypt_symmetric_stacked(jctx, pair["jsk"],
-                                                  pair["jvals"], keys[r])
+            jct = J_ops.encrypt_symmetric_stacked(jctx, pair["jsk"], jvals,
+                                                  keys[r])
         else:
-            jct = J_ops.encrypt_stacked(jctx, pair["jpk"], pair["jvals"],
-                                        keys[r])
+            jct = J_ops.encrypt_stacked(jctx, pair["jpk"], jvals, keys[r])
         np.testing.assert_array_equal(_u32(cts[r].data), np.asarray(jct.data))
         jagg = J_ops.weighted_sum(jctx, jct, c.weights)
         assert aggs[r].scale == jagg.scale
@@ -163,17 +170,52 @@ def test_threefry_round_equals_jax(pair, symmetric):
                                       np.asarray(jagg.data))
         np.testing.assert_array_equal(
             _bits(outs[r]), _bits(J_ops.decrypt(jctx, pair["jsk"], jagg)))
-    assert not torch.equal(cts[0].data, cts[1].data)
+    if rounds > 1:
+        assert not torch.equal(cts[0].data, cts[1].data)
+    return outs
 
 
-def test_threefry_fused_round_equals_jax(pair):
-    """fedavg_round_fused per round equals the JAX package's bit for bit
-    (tolerance 0), and the staged round's decrypt."""
-    c, jctx = pair["cohort"], pair["jctx"]
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_threefry_round_equals_jax(pair, symmetric):
+    """Each round's cohort ciphertext, its weighted sum and its decrypt
+    equal the JAX package's for the same tag: residues bit for bit,
+    decrypted f32 bit for bit (tolerance 0)."""
+    _rounds_equal_jax(pair["cohort"], pair, pair["jvals"], "threefry",
+                      symmetric, TAGS[0], ROUNDS)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_rbg_round_equals_jax(pair, symmetric):
+    """bench.py's own PRNG: under rbg round keys every round's cohort
+    ciphertext (secret and public key), aggregate and decrypt equal the
+    JAX package's bit for bit, as under threefry."""
+    _rounds_equal_jax(pair["cohort"], pair, pair["jvals"], "rbg", symmetric,
+                      TAGS[0], ROUNDS)
+
+
+def test_rbg_round_at_204_chunks_equals_bench_py(pair):
+    """One staged round of bench.py's headline at full width (the CNN's
+    1,663,370 values x 3 clients, 204 dense chunks) under its rbg round
+    keys: the port's ciphertexts, aggregate and decrypt are bench.py's on
+    the CPU bit for bit, and the decrypt is within bench.py's 1e-6."""
+    c = pair["cohort"]
+    values, flats = bench.make_clients(bench.CNN_PARAMS, bench.N_CLIENTS,
+                                       8192, 8192)
+    assert values.shape[1] == 204
+    full = dataclasses.replace(c, values=values)
+    out = _rounds_equal_jax(full, pair, jnp.asarray(values.numpy()), "rbg",
+                            True, TAGS[0], 1)[0]
+    want = sum(w * f for w, f in zip(c.weights, flats))
+    assert bench._max_err(out, want, 8192) <= 1e-6
+
+
+def _fused_equal_jax(pair, prng_name):
+    c, jctx = dataclasses.replace(pair["cohort"], prng=prng_name), \
+        pair["jctx"]
     tag = TAGS[1]
-    rngs = bench.round_rngs(tag, ROUNDS, "threefry", CPU)
+    rngs = bench.round_rngs(tag, ROUNDS, prng_name, CPU)
     outs = bench.fused_rounds(c, rngs)
-    keys = jax.random.split(jax.random.key(tag), ROUNDS)
+    keys = _jax_keys(tag, ROUNDS, prng_name)
     for r in range(ROUNDS):
         want = J_ops.fedavg_round_fused(jctx, pair["jsk"], pair["jvals"],
                                         keys[r], c.weights)
@@ -183,10 +225,21 @@ def test_threefry_fused_round_equals_jax(pair):
     np.testing.assert_array_equal(_bits(staged[0]), _bits(outs[0]))
 
 
+def test_threefry_fused_round_equals_jax(pair):
+    """fedavg_round_fused per round equals the JAX package's bit for bit
+    (tolerance 0), and the staged round's decrypt."""
+    _fused_equal_jax(pair, "threefry")
+
+
+def test_rbg_fused_round_equals_jax(pair):
+    """The same under bench.py's rbg round keys."""
+    _fused_equal_jax(pair, "rbg")
+
+
 def test_generator_rounds_are_reproducible_and_decrypt(pair):
-    """The rbg path (the device's generator, seeded from rbg keys): the
-    same tag gives the same ciphertexts, another tag others; the decrypt
-    is within 1e-6 of the f32 plaintext average."""
+    """The rbg path (XLA's Philox stream under rbg keys): the same tag
+    gives the same ciphertexts, another tag others; the decrypt is within
+    1e-6 of the f32 plaintext average."""
     c = pair["cohort"]
     g = bench.Cohort(c.ctx, c.sk, c.pk, c.values, c.weights, "rbg")
     a = bench.encrypt_rounds(g, bench.round_rngs(5, ROUNDS, "rbg", CPU))

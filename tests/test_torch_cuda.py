@@ -10,8 +10,10 @@ of the decode up to 27, K1 up to 28 limbs, K2 at N = 65536, both NTT
 kernels on one ring), and hold the threefry
 sampling, the CKKS bytes surface under threefry, the FFTS expansion, the
 threshold ceremonies and the masking scheme's online phase on the card
-equal to the CPU, and the rbg draws (the card's Philox, seeded from the
-port's rbg keys) to their key tree, statistics and decrypts.
+equal to the CPU; the Philox kernel (csrc/philox_rbg.cu) bit for bit
+against its plain version and the CPU at the bench's shapes, and the rbg
+draws, bytes and rounds on the card equal to the CPU's (which the CPU
+tests hold against JAX's rbg).
 """
 
 import dataclasses
@@ -368,8 +370,10 @@ def test_deep_path_small(dev, tmp_path):
 @pytest.mark.parametrize("mult_depth", [14, 24])
 def test_deep_chain_round_on_card(dev, mult_depth):
     """keygen, encrypt, weighted sum and decrypt at make_params(mult_depth
-    = 14 / 24): 17 / 27 live limbs at N = 32768, K2, K3 and K4 on the card;
-    the keys equal the CPU's."""
+    = 14 / 24): 17 / 27 live limbs at N = 32768, K2, K3 and K4 on the card,
+    sampling under an rbg key (the Philox kernel at 17 / 27 limbs, as the
+    deep path's helpers); the keys equal the CPU's."""
+    from fhe_fed_tpu_torch.utils import prng
     params = P.make_params(batch=4096, scale_bits=52, mult_depth=mult_depth)
     assert params.chain_len == mult_depth + 3 and params.ring_dim == 32768
     ctx = P.make_context(params, dev)
@@ -379,7 +383,7 @@ def test_deep_chain_round_on_card(dev, mult_depth):
     vals, weights, want = chip_smoke.make_values(3, 20000, 1, 32768)
     values = torch.as_tensor(vals, device=dev)
     outs, _ = chip_smoke.drive("deep", lambda: chip_smoke.run_main_path(
-        ctx, sk, pk, values, weights, _gen(dev)))
+        ctx, sk, pk, values, weights, prng.key(6, "rbg", dev)))
     assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR
 
 
@@ -420,19 +424,118 @@ def test_threefry_and_samplers_on_card_equal_cpu(dev, seed):
 
 
 def test_rbg_draws_on_card(dev):
-    """The rbg key tree on the card is the CPU's, its Generators are the
-    card's, its draws reproducible per key, and its samplers' statistics
-    over 2**20 draws each within chip_smoke.Z_BOUND standard errors."""
+    """The rbg key tree and draws on the card are the CPU's (XLA's Philox
+    words, which the CPU tests hold against JAX), reproducible per key,
+    and its samplers' statistics over 2**20 draws each within
+    chip_smoke.Z_BOUND standard errors."""
     from fhe_fed_tpu_torch.utils import prng
     chip_smoke.check_rbg_key_tree(dev)
     keys_ = prng.split(prng.key(3, "rbg", dev), 2)
-    assert all(g.device == dev for g in prng.generators(keys_))
     moduli = P.make_params(batch=4096, scale_bits=52, mult_depth=1).moduli
-    got = keys.uniform_mod_q_key(keys_, (2, 4, 8192), moduli)
-    assert got.is_cuda and torch.equal(
-        got, keys.uniform_mod_q_key(keys_, (2, 4, 8192), moduli))
+    for vmap in (False, True):
+        got = keys.uniform_mod_q_key(keys_, (2, 4, 8192), moduli, vmap=vmap)
+        assert got.is_cuda and torch.equal(got.cpu(), keys.uniform_mod_q_key(
+            keys_.cpu(), (2, 4, 8192), moduli, vmap=vmap))
     z = chip_smoke.rbg_sample_z(dev, moduli[:4], 8192, 128)
     assert all(abs(v) <= chip_smoke.Z_BOUND for v in z.values()), z
+
+
+# (entry, per-key shape, key batch, vmap): the bench's shapes (the raw
+# words of a 1224-row draw, the cohort's uniform `a` at 204 and 407 chunks
+# and its ternary / CBD draws, under the vmap rule), sizes that are not a
+# multiple of 4 drawn key by key, 28 limbs with rows of 10 (limb changes
+# inside a Philox block).
+PHILOX_CASES = [
+    ("words", (1224, 8192), (), False),
+    ("words", (13,), (3,), False),
+    ("words", (5,), (), False),
+    ("uniform", (204, 4, 8192), (3,), True),
+    ("uniform", (407, 4, 8192), (3,), True),
+    ("uniform", (3, 28, 10), (2,), False),
+    ("uniform", (28, 8192), (), False),
+    ("ternary", (3, 204, 8192), (4,), True),
+    ("ternary", (7,), (3,), False),
+    ("cbd", (3, 204, 8192), (4,), True),
+    ("cbd", (3, 407, 8192), (), False),
+    ("cbd", (13,), (2, 3), False),
+]
+
+
+@pytest.mark.parametrize("entry,shape,batch,vmap", PHILOX_CASES)
+def test_philox_kernel_matches_plain(dev, entry, shape, batch, vmap):
+    """Each entry of csrc/philox_rbg.cu bit for bit against its plain
+    version (prng.philox_bits and the epilogues of ckks/keys.py) on the
+    same keys on the card, reached through the dispatch a path uses, and
+    equal to the CPU's draw; one launch a call."""
+    from fhe_fed_tpu_torch.utils import philox_rbg, prng
+    moduli = P.make_params(batch=4096, scale_bits=52,
+                           mult_depth=24 if 28 in shape else 1).moduli
+    root = prng.key(17, "rbg", dev)
+    ks = (prng.split(root, math.prod(batch)).reshape(*batch, 4) if batch
+          else root)
+    k, per = prng.batch_rule(ks, shape, vmap)
+    k1, k2 = (x.contiguous() for x in prng.split(k).unbind(-2))
+    bits = prng.philox_bits
+    before = cuda_lib.launches["philox_rbg"]
+    if entry == "words":
+        got = prng.bits(k, per)
+        want = bits(k, per)
+        cpu = prng.bits(k.cpu(), per)
+    elif entry == "uniform":
+        got = keys.uniform_mod_q_key(ks, shape, moduli, vmap=vmap)
+        want = keys.uniform_from_words(bits(k1, per), bits(k2, per), moduli)
+        cpu = keys.uniform_mod_q_key(ks.cpu(), shape, moduli, vmap=vmap)
+        assert torch.equal(philox_rbg.uniform_mod_q(k1, k2, per, moduli),
+                           got)
+    elif entry == "ternary":
+        got = keys.ternary_coeffs_key(ks, shape, vmap=vmap)
+        want = keys.ternary_from_words(bits(k.contiguous(), per))
+        cpu = keys.ternary_coeffs_key(ks.cpu(), shape, vmap=vmap)
+    else:
+        got = keys.cbd_coeffs_key(ks, shape, vmap=vmap)
+        want = keys.cbd_from_words(bits(k1, per), bits(k2, per))
+        cpu = keys.cbd_coeffs_key(ks.cpu(), shape, vmap=vmap)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches["philox_rbg"] >= before + 1
+    assert got.is_cuda and got.shape == (*batch, *shape)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_philox_kernel_refuses_what_it_does_not_take(dev):
+    from fhe_fed_tpu_torch.utils import philox_rbg, prng
+    k = prng.key(1, "rbg", dev)
+    with pytest.raises(ValueError):
+        philox_rbg.words(k.cpu(), (4,))
+    with pytest.raises(TypeError):
+        philox_rbg.words(k.to(torch.int32), (4,))
+    with pytest.raises(ValueError):
+        philox_rbg.uniform_mod_q(k, k, (4, 8), [3] * 4)
+    with pytest.raises(ValueError):
+        philox_rbg.cbd(k, torch.stack([k, k]), (4,))
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(symmetric=True),
+                                  dict(seeded_fresh=True),
+                                  dict(packing="slots")])
+def test_rbg_bytes_on_card_equal_cpu(dev, tmp_path, mode):
+    """Under prng="rbg" a helper on the card writes the CPU helper's key
+    files and blobs (the JAX class's bytes under rbg, held by the CPU
+    tests), and its cohort ciphertext."""
+    helpers = [CKKS("ckks", 128, 40, cryptodir=str(tmp_path / d.type),
+                    seed=7, device=d, prng="rbg", **mode)
+               for d in (torch.device("cpu"), dev)]
+    for h in helpers:
+        h.genCryptoContextAndKeyGen()
+    for name in ("key-public.txt", "key-private.txt"):
+        assert (tmp_path / "cpu" / name).read_bytes() == \
+            (tmp_path / "cuda" / name).read_bytes()
+    data = [np.random.default_rng(i).standard_normal(300) for i in range(3)]
+    blobs = [[h.encrypt(x) for x in data] for h in helpers]
+    assert blobs[0] == blobs[1]
+    if "packing" not in mode:
+        cts = [h.encrypt_cohort(data) for h in helpers]
+        assert torch.equal(cts[0].data, cts[1].data.cpu())
 
 
 def test_rbg_path_small(dev, tmp_path):
@@ -512,8 +615,11 @@ def test_api_path_small(dev, tmp_path):
 
 def test_threshold_ceremonies_on_card_equal_cpu(dev):
     """Batched keygen, the stacked threshold decrypt and the fused
-    threshold round on the card (K1, K3, K4) equal the CPU bit for bit."""
+    threshold round on the card (K1, K3, K4; the round under rbg keys, as
+    the threshold path's helper, so the Philox kernel too) equal the CPU
+    bit for bit."""
     from fhe_fed_tpu_torch.ckks import threshold as thr
+    from fhe_fed_tpu_torch.utils import prng
     params = P.make_params(batch=128, scale_bits=40, mult_depth=1,
                            ring_dim=256)
     cpu = P.make_context(params, device="cpu")
@@ -524,11 +630,10 @@ def test_threshold_ceremonies_on_card_equal_cpu(dev):
     assert torch.equal(gpk.p0_shoup.cpu(), cpk.p0_shoup)
     vals = torch.randn((3, 2, 256), generator=torch.Generator().manual_seed(1))
     cuda_lib.launches.clear()
-    got = thr.threshold_round_fused(gpu, gsec, gpk, vals.to(dev),
-                                    TF.key(7, dev), TF.split(TF.key(8, dev), 3),
-                                    [0.5, 0.2, 0.3])
-    want = thr.threshold_round_fused(cpu, csec, cpk, vals, TF.key(7),
-                                     TF.split(TF.key(8), 3), [0.5, 0.2, 0.3])
+    got, want = (thr.threshold_round_fused(
+        c, sec, pk, vals.to(c.device), prng.key(7, "rbg", c.device),
+        prng.split(prng.key(8, "rbg", c.device), 3), [0.5, 0.2, 0.3])
+        for c, sec, pk in ((gpu, gsec, gpk), (cpu, csec, cpk)))
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     assert all(cuda_lib.launches[k] > 0
                for k in chip_smoke.PATH_KERNELS["threshold"])

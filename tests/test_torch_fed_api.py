@@ -303,3 +303,41 @@ def test_rbg_ffts_blob_is_aggregated_and_decrypted_by_jax(shared_dir):
     np.testing.assert_allclose(j.decrypt(agg, DIMS),
                                0.25 * data[0] + 0.75 * data[1], atol=1e-6)
     assert agg == t.computeWeightedAverage(blobs, [0.25, 0.75])
+
+
+RBG_PARITY_MODES = {k: MODES[k] for k in ("public_key", "symmetric",
+                                          "seeded_fresh", "slots")}
+
+
+@pytest.mark.parametrize("mode", RBG_PARITY_MODES)
+def test_rbg_helpers_write_the_same_bytes_as_jax(tmp_path, monkeypatch,
+                                                 mode):
+    """Under rbg (the JAX class's FHE_FED_TPU_PRNG=rbg, the port's
+    prng="rbg") one seed gives the JAX class's key files, blobs and
+    aggregate byte for byte, bit-equal decrypts and, in the coefficient
+    modes, the same cohort ciphertext and fused round."""
+    monkeypatch.setenv("FHE_FED_TPU_PRNG", "rbg")
+    kw = RBG_PARITY_MODES[mode]
+    j = J.CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "jax"), seed=17,
+               **kw)
+    t = T.CKKS("ckks", 128, 40, cryptodir=str(tmp_path / "port"), seed=17,
+               device="cpu", prng="rbg", **kw)
+    j.genCryptoContextAndKeyGen()
+    t.genCryptoContextAndKeyGen()
+    for name in ("cryptocontext.txt", "key-public.txt", "key-private.txt"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    rng = np.random.default_rng(4)
+    data = [rng.standard_normal(DIMS) for _ in range(3)]
+    jb = [j.encrypt(d) for d in data]
+    assert [t.encrypt(d) for d in data] == jb
+    agg = t.computeWeightedAverage(jb, WEIGHTS)
+    assert agg == j.computeWeightedAverage(jb, WEIGHTS)
+    _same_f64(t.decrypt(agg, DIMS), j.decrypt(agg, DIMS))
+    if mode == "slots":
+        return
+    ct = t.encrypt_cohort(data)
+    np.testing.assert_array_equal(ct.data.numpy(), np.asarray(
+        j.encrypt_cohort(data).data).astype(np.int32))
+    _same_f64(t.fedavg_round(data, WEIGHTS, DIMS),
+              j.fedavg_round(data, WEIGHTS, DIMS))

@@ -7,34 +7,47 @@ jax.random, and the rbg samplers on the CPU.
 - the rule that tells the implementations apart (the last dimension)
   holds on a (4, 2) batch of threefry keys and a (2, 4) batch of rbg keys,
   and threefry's functions refuse an rbg key;
-- an rbg key's Generator seed is threefry2x32 of its halves (checked with
-  JAX's own threefry_2x32); rbg `bits` are reproducible for one key on
-  the CPU, other keys give other words, and a batch of keys draws what
-  each key draws alone;
+- rbg `bits` is `jax.random.bits(key, shape, uint32)` bit for bit (XLA's
+  RngBitGenerator, Philox4x32-10): several seeds and split keys, shapes
+  () to (4, 8192), keys whose 128-bit counter carries across 2**32 and
+  2**64 (`wrap_key_data`); a key batch draws each key alone, or under
+  `vmap=True` as `jax.vmap` (nested once) draws: the whole batch from its
+  first key;
+- the three `*_key` samplers equal fhe_fed_tpu.ckks.keys.uniform_mod_q,
+  ternary_coeffs and cbd_coeffs under rbg keys, alone, key by key and
+  vmapped;
 - the rbg samplers' statistics over 2**20 draws (chip_smoke.rbg_sample_z,
   which the chip run applies to ~10^7 draws on the card): the mean and
   variance of the uniform residues per limb, the ternary frequencies, the
   CBD mean and variance (10), each within chip_smoke.Z_BOUND (5) standard
   errors;
-- the encrypts split an rbg key as the JAX functions do (client i of a
-  stacked encrypt draws under split(key, K)[i]), and a seeded blob's `a`
-  stays the threefry stream of its wire seed.
+- the stacked encrypts under an rbg key equal the JAX package's (its
+  jax.vmap over the clients), and the seeded encrypt's wire seed and c0
+  are JAX's while a seeded blob's `a` stays the threefry stream of that
+  seed.
 """
 
 import numpy as np
 import pytest
 import torch
 import jax
-from jax._src import prng as jax_prng
+import jax.numpy as jnp
 
 import chip_smoke
 
+from fhe_fed_tpu.ckks import keys as J_keys, ops as J_ops
+from fhe_fed_tpu.ckks import params as J_params
 from fhe_fed_tpu_torch.utils import prng, threefry as TF
 from fhe_fed_tpu_torch.ckks import params as P, keys as K, ops as O
 
 torch.set_num_threads(1)
 
 SEEDS = [0, 7, 2024, 2 ** 31 - 1, 2 ** 62 + 12345]
+BITS_SEEDS = [0, 7, 1234, 2 ** 31 - 1]
+BITS_SHAPES = [(), (5,), (3, 5, 7), (4, 8192)]
+# Key words whose counter (w3:w2) + i carries across 2**32 and across
+# 2**64 within the draw.
+CARRY_KEYS = [[1, 2, 0xFFFFFFFE, 0], [7, 9, 0xFFFFFFFF, 0xFFFFFFFF]]
 SMALL = dict(batch=128, scale_bits=40, mult_depth=1, ring_dim=256)
 DRAWS = 1 << 20
 CPU = torch.device("cpu")
@@ -42,6 +55,14 @@ CPU = torch.device("cpu")
 
 def _kd(k) -> np.ndarray:
     return np.asarray(jax.random.key_data(k)).astype(np.int64)
+
+
+def _u(a) -> np.ndarray:
+    return np.asarray(a).astype(np.int64)
+
+
+def _jbits(jk, shape) -> np.ndarray:
+    return _u(jax.random.bits(jk, shape, jnp.uint32))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -97,7 +118,7 @@ def test_last_dimension_tells_the_implementations_apart():
     with pytest.raises(TypeError):
         TF.bits(rbg_batch[0], (2,))
     with pytest.raises(TypeError, match="rbg"):
-        prng.seeds(tf_batch)
+        prng.philox_bits(tf_batch, (3,))
     with pytest.raises(ValueError, match="PRNG"):
         prng.key(1, "threefry2x32", CPU)
 
@@ -107,25 +128,6 @@ def test_default_impl_is_rbg_on_the_card_only():
     assert prng.default_impl("cuda:1") == "rbg"
     assert prng.default_impl("cpu") == "threefry"
     assert prng.default_impl(torch.device("meta")) == "threefry"
-
-
-def test_generator_seed_is_threefry_of_the_halves():
-    keys = prng.split(prng.key(11, "rbg", CPU), 3)
-    words = keys.numpy().astype(np.uint32)
-    want = []
-    for w in words:
-        y = np.asarray(jax_prng.threefry_2x32((w[0], w[1]), w[2:]))
-        want.append((int(y[0]) << 32) | int(y[1]))
-    assert prng.seeds(keys) == want
-    assert all(0 <= s < 2 ** 64 for s in want)
-    assert len(set(want)) == 3
-
-
-def test_threefry_block_on_words_equals_the_tensor_form():
-    w = np.random.default_rng(0).integers(0, 2 ** 32, (64, 4))
-    y0, y1 = TF.threefry2x32(*torch.as_tensor(w).unbind(1))
-    got = [TF.threefry2x32_words(*map(int, row)) for row in w]
-    assert got == list(zip(y0.tolist(), y1.tolist()))
 
 
 def test_rbg_bits_reproducible_and_batched():
@@ -140,7 +142,96 @@ def test_rbg_bits_reproducible_and_batched():
     assert both.shape == (2, 4, 1000)
     assert torch.equal(both[0], a) and torch.equal(both[1],
                                                    prng.bits(k2, (4, 1000)))
+    # Under the vmap rule the batch draws from its first key alone.
+    vm = prng.bits(*prng.batch_rule(torch.stack([k1, k2]), (4, 1000),
+                                     vmap=True))
+    assert torch.equal(vm, prng.bits(k1, (2, 4, 1000)))
     assert prng.bits(k1, ()).shape == ()
+
+
+@pytest.mark.parametrize("shape", BITS_SHAPES)
+@pytest.mark.parametrize("seed", BITS_SEEDS)
+def test_rbg_bits_match_jax(seed, shape):
+    """rbg bits are XLA's Philox words, as jax.random.bits draws them, for
+    a key and for its split keys."""
+    jk = jax.random.key(seed, impl="rbg")
+    k = prng.key(seed, "rbg", CPU)
+    np.testing.assert_array_equal(prng.bits(k, shape).numpy(),
+                                  _jbits(jk, shape))
+    for jks, ks in zip(jax.random.split(jk, 3), prng.split(k, 3)):
+        np.testing.assert_array_equal(prng.bits(ks, shape).numpy(),
+                                      _jbits(jks, shape))
+
+
+@pytest.mark.parametrize("words", CARRY_KEYS)
+def test_rbg_counter_carries_match_jax(words):
+    jk = jax.random.wrap_key_data(jnp.asarray(words, jnp.uint32),
+                                  impl="rbg")
+    k = torch.tensor(words, dtype=torch.int64)
+    for shape in ((3, 5, 7), (1001,)):
+        np.testing.assert_array_equal(prng.bits(k, shape).numpy(),
+                                      _jbits(jk, shape))
+    np.testing.assert_array_equal(prng.philox_bits(k, (13,)).numpy(),
+                                  _jbits(jk, (13,)))
+
+
+def test_rbg_vmap_rule_matches_jax_vmap():
+    """jax.vmap over a batch of 3 keys, and nested once over (2, 3): the
+    batch rule's draw is what JAX's batching rule draws (the first key, the
+    whole batch's shape); key by key it is not."""
+    def vmapped(ks, shape):
+        return prng.bits(*prng.batch_rule(ks, shape, vmap=True))
+
+    jks = jax.random.split(jax.random.key(11, impl="rbg"), 6)
+    ks = torch.as_tensor(_kd(jks))
+    one = jax.vmap(lambda k: jax.random.bits(k, (2, 7), jnp.uint32))
+    np.testing.assert_array_equal(vmapped(ks[:3], (2, 7)).numpy(),
+                                  _u(one(jks[:3])))
+    nested = jax.vmap(jax.vmap(
+        lambda k: jax.random.bits(k, (5,), jnp.uint32)))
+    np.testing.assert_array_equal(
+        vmapped(ks.reshape(2, 3, 4), (5,)).numpy(),
+        _u(nested(jks.reshape(2, 3))))
+    assert not torch.equal(prng.bits(ks[:3], (2, 7)),
+                           vmapped(ks[:3], (2, 7)))
+    # threefry batches draw key by key either way, as JAX's threefry does.
+    tks = TF.split(TF.key(3), 3)
+    assert torch.equal(vmapped(tks, (5,)), prng.bits(tks, (5,)))
+
+
+@pytest.fixture(scope="module")
+def jsmall():
+    return (J_params.make_context(J_params.make_params(**SMALL)),
+            P.make_params(**SMALL).moduli)
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "ternary", "cbd"])
+def test_rbg_samplers_match_jax(jsmall, sampler):
+    """keys.*_key under rbg keys equal the JAX package's samplers, for a
+    key, a key batch drawn key by key (a loop in JAX) and the same batch
+    under jax.vmap."""
+    jctx, moduli = jsmall
+    shape = ((2, len(moduli) - 1, 256) if sampler == "uniform"
+             else (3, 256))
+    jfn, tfn = {
+        "uniform": (lambda k: J_keys.uniform_mod_q(k, shape, jctx),
+                    lambda k, v: K.uniform_mod_q_key(k, shape, moduli,
+                                                     vmap=v)),
+        "ternary": (lambda k: J_keys.ternary_coeffs(k, shape),
+                    lambda k, v: K.ternary_coeffs_key(k, shape, vmap=v)),
+        "cbd": (lambda k: J_keys.cbd_coeffs(k, shape),
+                lambda k, v: K.cbd_coeffs_key(k, shape, vmap=v)),
+    }[sampler]
+    jks = jax.random.split(jax.random.key(21, impl="rbg"), 3)
+    ks = torch.as_tensor(_kd(jks))
+    got = tfn(ks[0], False)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _u(jfn(jks[0])))
+    each = tfn(ks, False)
+    for i in range(3):
+        np.testing.assert_array_equal(each[i].numpy(), _u(jfn(jks[i])))
+    np.testing.assert_array_equal(tfn(ks, True).numpy(),
+                                  _u(jax.vmap(jfn)(jks)))
 
 
 def test_rbg_sampler_statistics():
@@ -155,21 +246,26 @@ def test_rbg_sampler_statistics():
 
 
 def test_rbg_samplers_draw_each_key_alone():
+    """A key batch drawn key by key equals each key alone; under the vmap
+    rule it equals the first key's draw of the whole batch's shape."""
     params = P.make_params(**SMALL)
     keys = prng.split(prng.key(3, "rbg", CPU), 3)
     shape = (2, params.chain_len, params.ring_dim)
-    batch = K.uniform_mod_q_key(keys, shape, params.moduli)
+    batch = K.uniform_mod_q_key(keys, shape, params.moduli, vmap=False)
     assert batch.shape == (3, *shape)
     for i in range(3):
-        g = prng.generators(keys[i])[0]
-        assert torch.equal(batch[i], K.uniform_mod_q(g, shape,
-                                                     params.moduli))
-    cbd = K.cbd_coeffs_key(keys, (5, 256))
-    tern = K.ternary_coeffs_key(keys, (5, 256))
-    for i in range(3):
-        assert torch.equal(cbd[i], K.cbd_coeffs_key(keys[i], (5, 256)))
-        assert torch.equal(tern[i], K.ternary_coeffs(
-            prng.generators(keys[i])[0], (5, 256)))
+        assert torch.equal(batch[i], K.uniform_mod_q_key(
+            keys[i], shape, params.moduli, vmap=False))
+    assert torch.equal(
+        K.uniform_mod_q_key(keys, shape, params.moduli, vmap=True),
+        K.uniform_mod_q_key(keys[0], (3, *shape), params.moduli,
+                            vmap=False))
+    for fn in (K.cbd_coeffs_key, K.ternary_coeffs_key):
+        each = fn(keys, (5, 256), vmap=False)
+        for i in range(3):
+            assert torch.equal(each[i], fn(keys[i], (5, 256), vmap=False))
+        assert torch.equal(fn(keys, (5, 256), vmap=True),
+                           fn(keys[0], (3, 5, 256), vmap=False))
 
 
 @pytest.fixture(scope="module")
@@ -182,39 +278,53 @@ def small():
     return ctx, sk, pk, vals
 
 
+@pytest.fixture(scope="module")
+def jax_small():
+    """The JAX package's context and keygen(ctx, 0): the port's keys."""
+    jctx = J_params.make_context(J_params.make_params(**SMALL))
+    return (jctx, *J_keys.keygen(jctx, 0))
+
+
 @pytest.mark.parametrize("symmetric", [True, False])
-def test_stacked_encrypt_splits_an_rbg_key_per_client(small, symmetric):
+def test_stacked_encrypt_splits_an_rbg_key_per_client(small, jax_small,
+                                                      symmetric):
+    """A stacked encrypt splits the key per client, split(key, K), and
+    draws as the JAX package's jax.vmap over the clients: its ciphertexts
+    equal JAX's bit for bit, and not those of a loop of encrypts under the
+    clients' keys (each its own stream); it decrypts."""
     ctx, sk, pk, vals = small
+    jctx, jsk, jpk = jax_small
     key = prng.key(9, "rbg", CPU)
+    jkey = jax.random.key(9, impl="rbg")
+    jvals = jnp.asarray(vals.numpy())
     if symmetric:
         ct = O.encrypt_symmetric_stacked(ctx, sk, vals, key)
-        one = [O.encrypt_symmetric(ctx, sk, vals[i], k)
-               for i, k in enumerate(prng.split(key, 3))]
+        want = J_ops.encrypt_symmetric_stacked(jctx, jsk, jvals, jkey)
+        one = O.encrypt_symmetric(ctx, sk, vals[1], prng.split(key, 3)[1])
     else:
         ct = O.encrypt_stacked(ctx, pk, vals, key)
-        one = [O.encrypt(ctx, pk, vals[i], k)
-               for i, k in enumerate(prng.split(key, 3))]
-    for i in range(3):
-        assert torch.equal(ct.data[i], one[i].data)
-    again = (O.encrypt_symmetric_stacked(ctx, sk, vals, key) if symmetric
-             else O.encrypt_stacked(ctx, pk, vals, key))
-    assert torch.equal(ct.data, again.data)
-    other = (O.encrypt_symmetric(ctx, sk, vals[0], prng.key(9, "threefry",
-                                                            CPU))
-             if symmetric else O.encrypt(ctx, pk, vals[0],
-                                         prng.key(9, "threefry", CPU)))
-    assert not torch.equal(other.data, one[0].data)
+        want = J_ops.encrypt_stacked(jctx, jpk, jvals, jkey)
+        one = O.encrypt(ctx, pk, vals[1], prng.split(key, 3)[1])
+    np.testing.assert_array_equal(ct.data.numpy(), _u(want.data))
+    assert not torch.equal(ct.data[1], one.data)
     out = O.decrypt(ctx, sk, ct.__class__(ct.data[1], ct.scale, 0))
     assert float((out - vals[1]).abs().max()) <= 1e-6
 
 
-def test_seeded_encrypt_under_rbg(small):
-    """The wire seed is rbg bits of the key and the error key its fold_in;
-    `a` is the threefry pair of the seed, so expand_seeded rebuilds it."""
+def test_seeded_encrypt_under_rbg(small, jax_small):
+    """The wire seed is rbg bits of the key (JAX's) and the error key its
+    fold_in; `a` is the threefry pair of the seed, so expand_seeded
+    rebuilds it; c0 is the JAX package's."""
     ctx, sk, _, vals = small
+    jctx, jsk, _ = jax_small
     key = prng.key(4, "rbg", CPU)
     sct = O.encrypt_symmetric_seeded(ctx, sk, vals[0], key)
     assert torch.equal(sct.seed, prng.bits(key, (4,)))
+    jsct = J_ops.encrypt_symmetric_seeded(
+        jctx, jsk, jnp.asarray(vals[0].numpy()),
+        jax.random.key(4, impl="rbg"))
+    np.testing.assert_array_equal(sct.seed.numpy(), _u(jsct.seed))
+    np.testing.assert_array_equal(sct.c0.numpy(), _u(jsct.c0))
     ct = O.expand_seeded(ctx, sct)
     a = K.uniform_mod_q_xor2(sct.seed[:2], sct.seed[2:],
                              (2, ctx.params.chain_len, ctx.ring_dim),

@@ -102,7 +102,7 @@ def small():
 @pytest.mark.parametrize("shape", [(3, 256), (2, 3, 3, 256)])
 def test_uniform_mod_q_matches_jax(small, shape):
     """Half of the hi words are >= 2**31: the int64 Shoup multiply must
-    reduce them below q first (keys._reduce_bits_mod_q)."""
+    reduce them below q first (keys.uniform_from_words)."""
     jctx, moduli = small
     L = shape[-2]
     jk = jax.random.key(5)
@@ -126,7 +126,7 @@ def test_reduce_bits_mod_q_at_the_word_limits(small):
     lo = hi[:, ::-1].copy()
     want = _u(J_keys._reduce_bits_mod_q(jnp.asarray(hi), jnp.asarray(lo),
                                         hi.shape, jctx))
-    got = T_keys._reduce_bits_mod_q(torch.as_tensor(hi.astype(np.int64)),
+    got = T_keys.uniform_from_words(torch.as_tensor(hi.astype(np.int64)),
                                     torch.as_tensor(lo.astype(np.int64)),
                                     moduli)
     np.testing.assert_array_equal(got.numpy(), want)

@@ -171,10 +171,10 @@ def test_smudge_matches_jax(jax_side, branch):
     ctx = _port_ctx(dict(mult_depth=1, **SMALL), branch)
     jk, tk = _keys([21, 22])
     for live in (1, 4):
-        _same(T_thr._smudge(ctx, tk[0], 3, live),
+        _same(T_thr._smudge(ctx, tk[0], 3, live, vmap=False),
               jax.jit(J_thr._smudge, static_argnums=(2, 3))(
                   jctx, jk[0], 3, live))
-    batch = T_thr._smudge(ctx, T_thr.stack_keys(tk), 3, 4)
+    batch = T_thr._smudge(ctx, T_thr.stack_keys(tk), 3, 4, vmap=True)
     jbatch = jax.jit(jax.vmap(lambda k: J_thr._smudge(jctx, k, 3, 4)))(
         J_thr.stack_keys(jk))
     assert batch.shape == (2, 3, 4, N)
@@ -199,6 +199,30 @@ def test_galois_key_shares_and_batched_match_jax(jax_side, port_side):
         jctx, jsec, g, 77, J_thr.stack_keys(jk)))
     for f in ("b", "a", "b_shoup", "a_shoup"):
         assert torch.equal(getattr(batched, f), getattr(joint, f)), f
+
+
+def test_rbg_galois_batched_and_partials_follow_jax_vmap(jax_side,
+                                                        port_side):
+    """Under rbg keys the batched Galois ceremony and the stacked partial
+    decryptions draw as JAX's jax.vmap over the parties (every party's
+    noise from the first party's key): the JAX package's residues bit for
+    bit; the per-party shares draw each key's own stream, as JAX's."""
+    from fhe_fed_tpu_torch.utils import prng
+    jctx, jsks, _, jsec, *_ = jax_side
+    ctx, sks, _, sec, _ = port_side
+    g = T_ks.galois_element(1, N)
+    jk = jax.random.split(jax.random.key(43, impl="rbg"), PARTIES)
+    tk = prng.split(prng.key(43, "rbg", "cpu"), PARTIES)
+    _same_key(T_thr.multiparty_galois_key_batched(ctx, sec, g, 77, tk),
+              J_thr.multiparty_galois_key_batched(jctx, jsec, g, 77, jk))
+    _same_key(T_thr.partial_galois_key(ctx, sks[1], g, 77, tk[1]),
+              _j_galois_share(jctx, jsks[1], g, 77, jk[1]))
+    jct = jax_side[6]
+    ct = _tct(jct)
+    _same(T_thr.partial_decrypt_stacked(ctx, sec, ct, tk),
+          J_thr.partial_decrypt_stacked(jctx, jsec, jct, jk))
+    _same(T_thr.partial_decrypt_main(ctx, sks[2], ct, tk[2]),
+          _j_main(jctx, jsks[2], jct, jk[2]))
 
 
 def test_threshold_round_fused_matches_jax(jax_side, port_side):

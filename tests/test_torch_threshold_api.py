@@ -252,3 +252,34 @@ def test_rbg_threshold_round_decrypts(tmp_path):
     parts = [h.partial_decrypt(i, agg, rng_key=keys[i]) for i in range(3)]
     np.testing.assert_allclose(h.fuse_partials(parts, agg, DIMS), want,
                                atol=1e-5)
+
+
+def test_rbg_threshold_writes_the_jax_bytes(tmp_path, monkeypatch):
+    """Under rbg (the JAX class's FHE_FED_TPU_PRNG=rbg, the port's
+    prng="rbg") one seed gives the JAX class's cryptodir (key shares
+    included), blobs, stacked threshold decryptions, per-party partial
+    decryptions and fused rounds byte for byte: the smudging's vmap over
+    the parties draws from the first party's key in both."""
+    monkeypatch.setenv("FHE_FED_TPU_PRNG", "rbg")
+    j = J.ThresholdCKKS("ckks-threshold", 128, 40,
+                        cryptodir=str(tmp_path / "jax"), parties=3, seed=8)
+    t = T.ThresholdCKKS("ckks-threshold", 128, 40,
+                        cryptodir=str(tmp_path / "port"), parties=3, seed=8,
+                        device="cpu", prng="rbg")
+    j.genCryptoContextAndKeyGen()
+    t.genCryptoContextAndKeyGen()
+    for name in FILES:
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
+    data = _data(21)
+    jb = [j.encrypt(x) for x in data]
+    assert [t.encrypt(x) for x in data] == jb
+    agg = j.computeWeightedAverage(jb, WEIGHTS)
+    _same_f64(t.decrypt(agg, DIMS), j.decrypt(agg, DIMS))
+    for i in range(3):
+        np.testing.assert_array_equal(
+            t.partial_decrypt(i, agg).astype(np.int64),
+            np.asarray(j.partial_decrypt(i, agg)).astype(np.int64))
+    for fused in (True, False):
+        _same_f64(t.fedavg_round(data, WEIGHTS, DIMS, fused=fused),
+                  j.fedavg_round(data, WEIGHTS, DIMS, fused=fused))
