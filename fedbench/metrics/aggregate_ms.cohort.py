@@ -1,0 +1,7 @@
+"""Mean over the timed window of CUDA events on the current stream around each
+`CKKS.aggregate_cohort` call, per round (ms)."""
+
+
+def read(r):
+    ms = r.spans.get("aggregate_cohort")
+    return sum(ms) / len(ms) if ms else None
