@@ -20,6 +20,7 @@ import torch
 
 from ..rns import modops
 from ..utils import dfloat
+from ..utils.spans import traced
 from . import pallas_decode
 from .params import CkksContext, DecodeConsts, ENCODE_DIGITS, DIGIT_BITS
 
@@ -27,6 +28,7 @@ _F32 = torch.float32
 _I64 = torch.int64
 
 
+@traced("fhe.encode")
 def encode_coeff(ctx: CkksContext, values: torch.Tensor, scale: float,
                  num_limbs: int | None = None) -> torch.Tensor:
     """f32 values (..., N) -> int32 residues (..., L, N), coefficient order.

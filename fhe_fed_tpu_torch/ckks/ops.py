@@ -30,6 +30,7 @@ import torch
 from ..rns import modops
 from ..ntt import ntt as ntt_mod
 from ..utils import prng
+from ..utils.spans import traced
 from . import encoding, pallas_agg
 from .params import CkksContext
 from .keys import (SecretKey, PublicKey, uniform_mod_q, ternary_coeffs,
@@ -84,6 +85,7 @@ def _per_key_shape(key: torch.Tensor, shape) -> tuple:
     return tuple(shape[b:])
 
 
+@traced("fhe.sample")
 def _sym_samples(ctx: CkksContext, rng, shape):
     """(a_hat (..., L, N), e (..., N)) for a secret-key encrypt of values
     `shape` (..., N): k_a, k_e = split(key), as _encrypt_sym_impl; a key
@@ -100,6 +102,7 @@ def _sym_samples(ctx: CkksContext, rng, shape):
             cbd_coeffs_key(k_e, (*lead, n), vmap=True))
 
 
+@traced("fhe.sample")
 def _pk_samples(rng, shape):
     """(u, e0, e1), each (..., N), for a public-key encrypt of polynomials
     `shape` (..., N): k_u, k_e0, k_e1 = split(key, 3), as _encrypt_pt_impl;

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
+from ..utils.spans import traced
 from .params import CkksContext
 from .keys import SecretKey, PublicKey
 from .ops import Ciphertext, SeededCiphertext, expand_seeded
@@ -59,6 +60,7 @@ def _residues(blob: bytes, offset: int, shape, device) -> torch.Tensor:
     return torch.as_tensor(arr.astype(np.int32).reshape(shape), device=device)
 
 
+@traced("fhe.serialize")
 def serialize_ct(ctx: CkksContext, ct: Ciphertext,
                  packing: str = "coeff") -> bytes:
     """(chunks, 2, live, N) ciphertext -> FFTC bytes, or FFTP bytes with
@@ -72,6 +74,7 @@ def serialize_ct(ctx: CkksContext, ct: Ciphertext,
             + _u32_bytes(ct.data))
 
 
+@traced("fhe.deserialize")
 def deserialize_ct(ctx: CkksContext, blob: bytes,
                    packing: str = "coeff") -> Ciphertext:
     magic, ver, ring_dim, _batch, scale_bits, chunks, live, level, scale = \
@@ -90,6 +93,7 @@ def deserialize_ct(ctx: CkksContext, blob: bytes,
     return Ciphertext(data=data, scale=scale, level=level)
 
 
+@traced("fhe.serialize")
 def serialize_seeded_ct(ctx: CkksContext, sct: SeededCiphertext) -> bytes:
     """header | seed u32[4] | c0 payload: about half of serialize_ct."""
     chunks, live, _ = sct.c0.shape
@@ -97,6 +101,7 @@ def serialize_seeded_ct(ctx: CkksContext, sct: SeededCiphertext) -> bytes:
             + _u32_bytes(sct.seed) + _u32_bytes(sct.c0))
 
 
+@traced("fhe.deserialize")
 def deserialize_seeded_ct(ctx: CkksContext, blob: bytes) -> SeededCiphertext:
     magic, ver, ring_dim, _batch, scale_bits, chunks, live, level, scale = \
         _CT_HDR.unpack_from(blob, 0)

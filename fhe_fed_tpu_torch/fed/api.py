@@ -51,6 +51,7 @@ from ..ckks import ops as ckks_ops
 from ..ckks import serial as ckks_serial
 from ..ckks import slots as ckks_slots
 from ..utils import prng as prng_mod
+from ..utils.spans import span, traced
 from .scheme import Scheme, register_scheme
 
 _CTX_FILE = "cryptocontext.txt"
@@ -177,6 +178,7 @@ class CKKS(Scheme):
         positions. In slot mode: (chunks, N/2) f64 host slots."""
         return self._pack_cohort([flat])[0]
 
+    @traced("fhe.unpack")
     def _unpack(self, vals, dims: int) -> np.ndarray:
         if torch.is_tensor(vals):
             vals = vals.cpu().numpy()
@@ -241,6 +243,7 @@ class CKKS(Scheme):
     # client). The cohort path keeps the round on the device: one call
     # encrypts all K clients, one weighted sum (kernel K3), one decrypt.
 
+    @traced("fhe.pack")
     def _pack_cohort(self, client_vectors):
         """K flat vectors (same size) -> (K, chunks, N) f32 on the device
         (slot mode: (K, chunks, N/2) f64 on the host)."""
@@ -353,20 +356,26 @@ class CKKS(Scheme):
             raise ValueError(
                 "fedavg_round is coefficient-packed; slot packing serves "
                 "the reference-parity bytes surface")
-        packed = (client_vectors if self._is_packed(client_vectors)
-                  else self._pack_cohort(client_vectors))
-        dims = (int(data_dimensions) if data_dimensions is not None
-                else packed[0].numel() if packed is client_vectors
-                else int(np.asarray(client_vectors[0]).size))
-        chunks = packed.shape[1]
-        if max_chunks is None or chunks <= max_chunks:
-            return self._unpack(
-                self._round_slice(packed, scaling_factors, fused), dims)
-        pad = (-chunks) % max_chunks
-        if pad:
-            packed = torch.cat([packed, packed.new_zeros(
-                (packed.shape[0], pad, packed.shape[2]))], dim=1)
-        outs = [self._round_slice(packed[:, s:s + max_chunks],
-                                  scaling_factors, fused).cpu()
-                for s in range(0, chunks + pad, max_chunks)]
-        return self._unpack(torch.cat(outs), dims)
+        with span("fhe.pack"):
+            packed = (client_vectors if self._is_packed(client_vectors)
+                      else self._pack_cohort(client_vectors))
+            dims = (int(data_dimensions) if data_dimensions is not None
+                    else packed[0].numel() if packed is client_vectors
+                    else int(np.asarray(client_vectors[0]).size))
+            chunks = packed.shape[1]
+            one = max_chunks is None or chunks <= max_chunks
+            pad = 0 if one else (-chunks) % max_chunks
+            if pad:
+                packed = torch.cat([packed, packed.new_zeros(
+                    (packed.shape[0], pad, packed.shape[2]))], dim=1)
+        if one:
+            with span("fhe.slice"):
+                out = self._round_slice(packed, scaling_factors, fused)
+            return self._unpack(out, dims)
+        outs = []
+        for s in range(0, chunks + pad, max_chunks):
+            with span("fhe.slice"):
+                outs.append(self._round_slice(packed[:, s:s + max_chunks],
+                                              scaling_factors, fused).cpu())
+        with span("fhe.unpack"):
+            return self._unpack(torch.cat(outs), dims)

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .spans import traced
+
 _M = 0xFFFFFFFF
 _I64 = torch.int64
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -103,6 +105,7 @@ def wrap_key_data(words, device: torch.device | str | None = None
     return torch.as_tensor(a, device="cpu" if device is None else device)
 
 
+@traced("fhe.key_split")
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split(key, num): (..., 2) -> (..., num, 2)."""
     y0, y1 = _hash_counters(key, (num,))
