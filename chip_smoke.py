@@ -186,10 +186,13 @@ Phases (each raises on failure, so the script exits non-zero):
      its plain version at the bench's shapes (raw words (1224, 8192);
      uniform (3, 204 / 407, 4, 8192) under the vmap rule; ternary and CBD
      (4, 3, 204, 8192), CBD (3, 407, 8192)), timed beside torch.randint
-     over the same words (library_ms); one bench round under rbg round
-     keys on the card equal to the same round on the CPU through the
-     plain version (ciphertext, aggregate, decrypt: the JAX package's
-     round, which tests/test_torch_bench.py holds against bench.py); the
+     over the same words (library_ms); the split kernel
+     (csrc/threefry_split.cu) bit-exact against its plain version on key
+     batches (2,), (3, 2, 2) and (64, 2), each into 2; one bench round
+     under rbg round keys on the card equal to the same round on the CPU
+     through the plain version (ciphertext, aggregate, decrypt: the JAX
+     package's round, which tests/test_torch_bench.py holds against
+     bench.py); the
      CKKS helpers on the card, whose PRNG defaults to rbg, in the
      symmetric, public-key and seeded_fresh modes over the CNN's
      3 x 1,663,370 values within 1e-6, the same seed giving the same bytes
@@ -296,6 +299,11 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
     "philox_rbg": ("fhe_fed_tpu_torch/csrc/philox_rbg.cu",
                    "jax/_src/prng.py:1285 (XLA RngBitGenerator, via "
                    "fhe_fed_tpu/ckks/keys.py:53-107)"),
+    # Not a Pallas kernel: XLA's threefry2x32 hash, which jax.random.split
+    # reaches under either PRNG (rbg splits each half).
+    "threefry_split": ("fhe_fed_tpu_torch/csrc/threefry_split.cu",
+                       "jax/_src/prng.py _threefry_split_foldlike (XLA "
+                       "threefry2x32)"),
 }
 PATH_KERNELS = {   # the kernels each driven path must launch
     "fedavg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
@@ -2588,6 +2596,28 @@ def check_philox_kernels(dev, moduli, reps=10) -> list[dict]:
     return recs
 
 
+# The split kernel's records: key batches as the path splits them (one
+# threefry key, the halves of a (3,) batch of rbg keys, 64 keys), each
+# into 2.
+SPLIT_RECORDS = ((2,), (3, 2, 2), (64, 2))
+
+
+def check_threefry_split(dev, reps=100) -> list[dict]:
+    """The split kernel (csrc/threefry_split.cu) bit-exact against its
+    plain version (threefry.split_plain, torch ops on the card) at
+    SPLIT_RECORDS, on keys split from key(43) on the card."""
+    recs = []
+    for shape in SPLIT_RECORDS:
+        k = threefry.split(threefry.key(43, dev),
+                           math.prod(shape) // 2).reshape(shape)
+        fn = lambda: threefry.split(k, 2)
+        plain = lambda: threefry.split_plain(k, 2)
+        got = fn()
+        _record(recs, "threefry_split", got, plain(), fn, plain, reps,
+                (0, io_bytes(k, got)), plain_reps=reps, shape=list(shape))
+    return recs
+
+
 def check_rbg_bench_round(dev, values: torch.Tensor, tag: int = 7) -> float:
     """One round of bench's headline under its rbg round keys (the cohort
     encrypt, secret key, at `values`' shape) on the card and on the CPU
@@ -2729,6 +2759,7 @@ def rbg_path(dev, gpu: str, params, values: torch.Tensor, cnn_vecs,
     print(f"rbg key tree and bits on {dev} == the CPU's (seeds "
           f"{list(RBG_SEEDS)}): ok", flush=True)
     recs = check_philox_kernels(dev, params.moduli[:params.chain_len])
+    recs += check_threefry_split(dev)
     print_records(recs, gpu)
     cpu_s = check_rbg_bench_round(dev, values)
     print(f"rbg bench round {tuple(values.shape)} on {dev} == the CPU's "

@@ -63,6 +63,8 @@ _SIGNATURES = {
     "fhe_decode_crt": (_P, _P, _P, _I, _I, _I, _I, _P),
     # out, k1, k2, limb_consts(host), limbs, n, epilogue, nkeys, per, stream
     "fhe_philox_rbg": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P),
+    # out, key, nkeys, num, stream
+    "fhe_threefry_split": (_P, _P, _L, _L, _P),
 }
 
 

@@ -19,6 +19,11 @@ storage-only dtype on the CPU).
   * bits(k, shape) = out0 ^ out1 of the counters of `shape`;
   * fold_in(k, d) = threefry2x32(k, (0, d)).
 
+A split on the card is one launch of the kernel csrc/threefry_split.cu,
+which reads the key words from device memory; `split_plain` is the same
+split in int64 torch ops, which CPU keys take. Nothing falls back: a CUDA
+key launches the kernel or raises.
+
 On those words, `uniform` is jax.random.uniform bit for bit and `normal`
 jax.random.normal within 4 ulp (see `_erfinv`).
 """
@@ -28,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from .spans import traced
 
 _M = 0xFFFFFFFF
@@ -107,9 +113,35 @@ def wrap_key_data(words, device: torch.device | str | None = None
 
 @traced("fhe.key_split")
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """jax.random.split(key, num): (..., 2) -> (..., num, 2)."""
+    """jax.random.split(key, num): (..., 2) -> (..., num, 2). A CUDA key
+    splits in one launch of the kernel, any other in torch ops."""
+    if torch.is_tensor(key) and key.is_cuda:
+        return _split_kernel(key, num)
+    return split_plain(key, num)
+
+
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """The plain version of `split`: int64 torch ops on the key's device;
+    a meta key gives the shape alone."""
     y0, y1 = _hash_counters(key, (num,))
     return torch.stack([y0, y1], dim=-1)
+
+
+def _split_kernel(key: torch.Tensor, num: int) -> torch.Tensor:
+    _words(key)
+    if key.dtype != _I64:
+        raise TypeError(f"threefry_split: expected {_I64}, got {key.dtype}")
+    key, num = key.contiguous(), int(num)
+    out = torch.empty((*key.shape[:-1], num, 2), dtype=_I64,
+                      device=key.device)
+    if out.numel() == 0:
+        return out
+    err = cuda_lib.lib().fhe_threefry_split(
+        out.data_ptr(), key.data_ptr(), key.numel() // 2, num,
+        cuda_lib.stream_ptr(key))
+    cuda_lib.check(err, "threefry_split")
+    cuda_lib.launches["threefry_split"] += 1
+    return out
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:

@@ -11,7 +11,9 @@ kernels on one ring), and hold the threefry
 sampling, the CKKS bytes surface under threefry, the FFTS expansion, the
 threshold ceremonies and the masking scheme's online phase on the card
 equal to the CPU; the Philox kernel (csrc/philox_rbg.cu) bit for bit
-against its plain version and the CPU at the bench's shapes, and the rbg
+against its plain version and the CPU at the bench's shapes; the key
+split kernel (csrc/threefry_split.cu) against the CPU's split of either
+PRNG, one launch a split and no synchronise; and the rbg
 draws, bytes and rounds on the card equal to the CPU's (which the CPU
 tests hold against JAX's rbg).
 """
@@ -421,6 +423,100 @@ def test_threefry_and_samplers_on_card_equal_cpu(dev, seed):
         keys.uniform_mod_q_xor2(kc[0], kc[1], shape, moduli))
     for fn in (keys.ternary_coeffs_tf, keys.cbd_coeffs_tf):
         assert torch.equal(fn(kg, (3, 8192)).cpu(), fn(kc, (3, 8192)))
+
+
+SPLIT_SEEDS = (0, 2 ** 32 - 1, 2 ** 62 + 12345)
+
+
+def _split_launches(fn):
+    """fn()'s result and the split kernel's launches while it ran."""
+    before = cuda_lib.launches["threefry_split"]
+    out = fn()
+    return out, cuda_lib.launches["threefry_split"] - before
+
+
+@pytest.mark.parametrize("impl", ["threefry", "rbg"])
+@pytest.mark.parametrize("batch", [(), (3,), (3, 2), (64,)])
+def test_threefry_split_kernel_matches_cpu(dev, impl, batch):
+    """prng.split of either PRNG on the card is one launch of
+    csrc/threefry_split.cu and the CPU's split bit for bit (which the CPU
+    tests hold against jax.random.split)."""
+    from fhe_fed_tpu_torch.utils import prng
+    for seed in SPLIT_SEEDS:
+        kc = prng.key(seed, impl, "cpu")
+        if batch:
+            kc = prng.split(kc, math.prod(batch)).reshape(*batch, -1)
+        kg = kc.to(dev)
+        for num in (1, 2, 3, 5, 64):
+            got, n = _split_launches(lambda: prng.split(kg, num))
+            assert n == 1
+            assert got.is_cuda and got.shape == (*batch, num, kc.shape[-1])
+            assert torch.equal(got.cpu(), prng.split(kc, num))
+
+
+def test_threefry_split_kernel_on_strided_keys(dev):
+    """A key batch that is a slice of unbind(-2), not contiguous, splits
+    to the CPU's words."""
+    from fhe_fed_tpu_torch.utils import prng
+    for impl in prng.IMPLS:
+        kc = prng.split(prng.split(prng.key(9, impl, "cpu"), 3), 2)
+        for g, c in zip(kc.to(dev).unbind(-2), kc.unbind(-2)):
+            assert not g.is_contiguous()
+            got, n = _split_launches(lambda: prng.split(g, 5))
+            assert n == 1 and torch.equal(got.cpu(), prng.split(c, 5))
+
+
+def test_threefry_split_chain_as_the_cohort_encrypt(dev):
+    """The chain of five splits a secret-key cohort encrypt makes
+    (`_next_key`, `_split_clients`, `_sym_samples`, two `_rbg_pair`), each
+    feeding the next, on the card under torch's sync check set to raise:
+    five launches, no synchronise, the CPU's keys."""
+    from fhe_fed_tpu_torch.utils import prng
+
+    def chain(key):
+        rng, k = prng.split(key).unbind(0)
+        clients = prng.split(k, 3)
+        k_a, k_e = prng.split(clients).unbind(-2)
+        return [rng, clients, k_a, k_e] + [
+            prng.split(prng.batch_rule(x, (4,), True)[0]) for x in (k_a, k_e)]
+    for impl in prng.IMPLS:
+        for seed in SPLIT_SEEDS:
+            kg = prng.key(seed, impl, dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, n = _split_launches(lambda: chain(kg))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert n == 5
+            for g, w in zip(got, chain(prng.key(seed, impl, "cpu"))):
+                assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("impl", ["threefry", "rbg"])
+def test_encrypt_cohort_splits_in_five_launches(dev, tmp_path, impl):
+    """A secret-key helper's encrypt_cohort on the card makes its five key
+    splits in five launches of the split kernel and gives the CPU
+    helper's ciphertext, and its key files, byte for byte."""
+    helpers = [CKKS("ckks", 128, 40, cryptodir=str(tmp_path / d.type),
+                    seed=7, device=d, prng=impl, symmetric=True)
+               for d in (torch.device("cpu"), dev)]
+    for h in helpers:
+        h.genCryptoContextAndKeyGen()
+    assert (tmp_path / "cpu" / "key-private.txt").read_bytes() == \
+        (tmp_path / "cuda" / "key-private.txt").read_bytes()
+    data = [np.random.default_rng(i).standard_normal(300) for i in range(3)]
+    want = helpers[0].encrypt_cohort(data)
+    got, n = _split_launches(lambda: helpers[1].encrypt_cohort(data))
+    assert n == 5
+    assert got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+
+
+def test_threefry_split_kernel_refuses_what_it_does_not_take(dev):
+    with pytest.raises(TypeError):
+        TF.split(TF.key(1, dev).to(torch.int32))
+    with pytest.raises(TypeError):
+        TF.split(torch.zeros(4, dtype=torch.int64, device=dev))
 
 
 def test_rbg_draws_on_card(dev):

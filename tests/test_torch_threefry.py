@@ -14,7 +14,8 @@ import jax
 import jax.numpy as jnp
 
 from fhe_fed_tpu.ckks import params as J_params, keys as J_keys
-from fhe_fed_tpu_torch.utils import threefry as TF
+from fhe_fed_tpu_torch import cuda_lib
+from fhe_fed_tpu_torch.utils import prng, threefry as TF
 from fhe_fed_tpu_torch.ckks import params as T_params, keys as T_keys
 from fhe_fed_tpu_torch.ckks import ops as T_ops, serial as T_serial
 
@@ -48,6 +49,28 @@ def test_key_split_fold_in_match_jax(seed):
     for d in (0, 1, 0x5eed, 2 ** 32 - 1):
         np.testing.assert_array_equal(TF.fold_in(tk, d).numpy(),
                                       _kd(jax.random.fold_in(jk, d)))
+
+
+@pytest.mark.parametrize("impl", prng.IMPLS)
+def test_cpu_keys_split_without_the_kernel_library(monkeypatch, impl):
+    """CPU keys of either PRNG split in torch ops to jax.random.split's
+    words and never reach the kernel library (csrc/threefry_split.cu)."""
+    def refuse():
+        raise AssertionError("a CPU key reached the kernel library")
+    monkeypatch.setattr(cuda_lib, "lib", refuse)
+    launches = dict(cuda_lib.launches)
+    for seed in (0, 2 ** 32 - 1, 2 ** 62 + 12345):
+        jk = jax.random.key(seed, impl={"threefry": "threefry2x32"}.get(
+            impl, impl))
+        k = prng.key(seed, impl, "cpu")
+        for num in (1, 2, 5):
+            np.testing.assert_array_equal(prng.split(k, num).numpy(),
+                                          _kd(jax.random.split(jk, num)))
+        kb, jkb = prng.split(k, 3), jax.random.split(jk, 3)
+        np.testing.assert_array_equal(
+            prng.split(kb, 2).numpy(),
+            _kd(jax.vmap(lambda x: jax.random.split(x, 2))(jkb)))
+    assert dict(cuda_lib.launches) == launches
 
 
 def test_large_seed_keeps_low_32_bits():
