@@ -1,0 +1,15 @@
+"""Host time per traced round inside the program's `fhe.tree_flatten`,
+`fhe.tree_split` and `fhe.tree_unflatten` spans (fed/fedavg.py: each
+client's tree copied to the host and flattened, split by the policy, and
+the averaged parts merged and unflattened), outermost spans only (ms).
+Without those spans in the trace it reads nothing."""
+
+from fedbench import spec
+
+span_ms = spec.load_file(spec.HERE / "metrics" / "keys_ms.cohort.py"
+                         ).span_ms
+
+
+def read(r):
+    return span_ms(r.trace, ("fhe.tree_flatten", "fhe.tree_split",
+                             "fhe.tree_unflatten"))

@@ -10,7 +10,14 @@ one ciphertext batch, the plain remainder is averaged directly.
 Leaves are ordered as `jax.tree_util.tree_flatten` orders them, so a
 `layer_mask` picks the same leaves in both packages: a plain dict by
 sorted key, an OrderedDict (every torch `state_dict`) by insertion, lists
-and tuples by position. Anything else is a leaf.
+and tuples by position. Anything else is a leaf. A leaf's path is its
+keys and positions joined by "." (a state_dict's leaf: its key, as
+"model.layers.3.self_attn.q_proj.weight"); a callable `layer_mask` is
+given (index, path).
+
+Each stage of `fhe_fedavg` is a span (utils/spans.py): `fhe.tree_flatten`,
+`fhe.tree_split` (the split and the merge), `fhe.encrypted_part` (the
+scheme's calls), `fhe.plain_average` and `fhe.tree_unflatten`.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils.spans import span, traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,28 +61,35 @@ FULL = SelectivePolicy()
 
 
 def _children(node):
-    """(children, rebuild) of a container node, or None for a leaf."""
+    """(keys, children, rebuild) of a container node, or None for a
+    leaf."""
     kind = type(node)
     if kind is collections.OrderedDict:
         keys = list(node)
-        return ([node[k] for k in keys],
+        return (keys, [node[k] for k in keys],
                 lambda ch: collections.OrderedDict(zip(keys, ch)))
     if kind is dict:
         keys = sorted(node)
-        return [node[k] for k in keys], lambda ch: dict(zip(keys, ch))
+        return keys, [node[k] for k in keys], lambda ch: dict(zip(keys, ch))
     if kind in (list, tuple):
-        return list(node), kind
+        return range(len(node)), list(node), kind
     return None
 
 
-def _flatten(node, leaves: list):
-    """Append node's leaves in order; return its structure."""
+def _flatten(node, leaves: list, paths: list | None = None,
+             prefix: str = ""):
+    """Append node's leaves in order (and their paths to `paths`); return
+    its structure."""
     ch = _children(node)
     if ch is None:
         leaves.append(node)
+        if paths is not None:
+            paths.append(prefix)
         return None
-    children, rebuild = ch
-    return rebuild, [_flatten(c, leaves) for c in children]
+    keys, children, rebuild = ch
+    return rebuild, [_flatten(c, leaves, paths,
+                              f"{prefix}.{k}" if prefix else str(k))
+                     for k, c in zip(keys, children)]
 
 
 def _unflatten(struct, it):
@@ -103,22 +119,26 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+@traced("fhe.tree_flatten")
 def flatten_params(tree):
     """Nested containers of tensors or arrays -> (flat float32 vector,
-    spec)."""
+    spec); spec is (structure, shapes, sizes, paths)."""
     leaves: list = []
-    struct = _flatten(tree, leaves)
+    paths: list = []
+    struct = _flatten(tree, leaves, paths)
     arrays = [_numpy(x) for x in leaves]
     flats = [a.reshape(-1).astype(np.float32) for a in arrays]
     flat = np.concatenate(flats) if flats else np.zeros(0, np.float32)
-    return flat, (struct, [a.shape for a in arrays], [f.size for f in flats])
+    return flat, (struct, [a.shape for a in arrays], [f.size for f in flats],
+                  paths)
 
 
+@traced("fhe.tree_unflatten")
 def unflatten_params(flat, spec):
     """Inverse of flatten_params: float32 CPU tensors in the input's
     containers (a state_dict comes back as an OrderedDict that
     `load_state_dict` takes)."""
-    struct, shapes, sizes = spec
+    struct, shapes, sizes, _ = spec
     out = []
     off = 0
     for shp, sz in zip(shapes, sizes):
@@ -128,16 +148,18 @@ def unflatten_params(flat, spec):
     return _unflatten(struct, iter(out))
 
 
+@traced("fhe.tree_split")
 def split_by_policy(flat, spec, policy: SelectivePolicy):
     """Split a flat model vector into (encrypted_part, plain_part, plan);
-    plan records per-leaf (enc_len, plain_len) so the split is invertible."""
-    _, _, sizes = spec
+    plan records per-leaf (enc_len, plain_len) so the split is invertible.
+    The policy sees each leaf's index and path."""
+    _, _, sizes, paths = spec
     enc_segs, plain_segs, plan = [], [], []
     off = 0
-    for idx, sz in enumerate(sizes):
+    for idx, (sz, path) in enumerate(zip(sizes, paths)):
         leaf = flat[off:off + sz]
         off += sz
-        k = policy.enc_count(sz) if policy.leaf_selected(idx) else 0
+        k = policy.enc_count(sz) if policy.leaf_selected(idx, path) else 0
         enc_segs.append(leaf[:k])
         plain_segs.append(leaf[k:])
         plan.append((k, sz - k))
@@ -148,6 +170,7 @@ def split_by_policy(flat, spec, policy: SelectivePolicy):
     return enc, plain, plan
 
 
+@traced("fhe.tree_split")
 def merge_by_policy(enc, plain, plan):
     out = []
     eo = po = 0
@@ -186,19 +209,23 @@ def fhe_fedavg(scheme, client_params: list, weights: list[float],
         plains.append(pl)
 
     if encs[0].size:
-        if not use_bytes and hasattr(scheme, "fedavg_round"):
-            enc_out = scheme.fedavg_round(
-                encs, list(weights), encs[0].size).astype(np.float32)
-        else:
-            blobs = [scheme.encrypt(e) for e in encs]
-            agg_blob = scheme.computeWeightedAverage(blobs, list(weights))
-            enc_out = scheme.decrypt(agg_blob, encs[0].size).astype(np.float32)
+        with span("fhe.encrypted_part"):
+            if not use_bytes and hasattr(scheme, "fedavg_round"):
+                enc_out = scheme.fedavg_round(
+                    encs, list(weights), encs[0].size).astype(np.float32)
+            else:
+                blobs = [scheme.encrypt(e) for e in encs]
+                agg_blob = scheme.computeWeightedAverage(blobs, list(weights))
+                enc_out = scheme.decrypt(agg_blob,
+                                         encs[0].size).astype(np.float32)
     else:
         enc_out = np.zeros(0, np.float32)
 
     if plains[0].size:
-        plain_out = sum(w * p.astype(np.float64)
-                        for w, p in zip(weights, plains)).astype(np.float32)
+        with span("fhe.plain_average"):
+            plain_out = sum(w * p.astype(np.float64)
+                            for w, p in zip(weights, plains)
+                            ).astype(np.float32)
     else:
         plain_out = np.zeros(0, np.float32)
 

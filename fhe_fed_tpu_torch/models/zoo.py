@@ -25,6 +25,12 @@ Param-count ladder (reference figs/processing.py:11-22 vs ours):
   vit         86,389,248   86,389,248
   bert        109,482,240  109,482,240
   (extra)     gcn 23,063 / lenet 88,648 / tabnet 8,929
+
+Beyond the JAX package's ladder (PORT_NAMES, not in MODEL_NAMES):
+deepseek_v2_lite, DeepSeek-V2-Lite at its published config
+(15,706,484,224), and deepseek_v2_lite_shard, one expert-parallel chip's
+share of it (535,060,992; models/deepseek_v2.py), each an OrderedDict
+under the Hugging Face key names.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import torch
 
 from .. import cuda_lib
 from ..utils import threefry as tf
-from . import basic, convnets, transformers_zoo, graph_tabular
+from . import basic, convnets, deepseek_v2, transformers_zoo, graph_tabular
 from .layers import param_count
 
 
@@ -98,7 +104,17 @@ _REGISTRY: dict[str, tuple[Callable, Callable, int | None]] = {
     "tabnet": (graph_tabular.tabnet_init, graph_tabular.tabnet_apply, None),
 }
 
+# The JAX package's models, in its order.
 MODEL_NAMES = tuple(_REGISTRY)
+
+# Models of the port alone: name -> configuration.
+_DEEPSEEK_V2 = {"deepseek_v2_lite": deepseek_v2.LITE,
+                "deepseek_v2_lite_shard": deepseek_v2.LITE_SHARD}
+PORT_NAMES = tuple(_DEEPSEEK_V2)
+for _name, _cfg in _DEEPSEEK_V2.items():
+    _REGISTRY[_name] = (
+        lambda key, cfg=_cfg: (deepseek_v2.init(key, cfg), None),
+        functools.partial(deepseek_v2.apply, cfg=_cfg), None)
 
 # The 12-model figure ladder order (figs/processing.py:11-29).
 LADDER = ("linear", "tst", "mlp", "rnn_lstm", "cnn_fedavg", "mobilenet",
@@ -107,7 +123,8 @@ LADDER = ("linear", "tst", "mlp", "rnn_lstm", "cnn_fedavg", "mobilenet",
 
 def _registered(name: str):
     if name not in _REGISTRY:
-        raise KeyError(f"unknown model {name!r}; have {MODEL_NAMES}")
+        raise KeyError(f"unknown model {name!r}; have "
+                       f"{MODEL_NAMES + PORT_NAMES}")
     return _REGISTRY[name]
 
 
@@ -165,4 +182,7 @@ def example_inputs(name: str, seed: int = 0) -> tuple[np.ndarray, ...]:
         return x, (a * d[:, None] * d[None, :]).astype(np.float32)
     if name == "tabnet":
         return (img(8, 54),)
-    raise KeyError(f"unknown model {name!r}; have {MODEL_NAMES}")
+    if name in PORT_NAMES:
+        return (rng.integers(0, _DEEPSEEK_V2[name]["vocab_size"], (1, 16)),)
+    raise KeyError(f"unknown model {name!r}; have "
+                   f"{MODEL_NAMES + PORT_NAMES}")

@@ -159,6 +159,11 @@ def bits(key: torch.Tensor, shape) -> torch.Tensor:
     return y0.bitwise_xor_(y1)
 
 
+def _meta_draw(key: torch.Tensor, shape) -> torch.Tensor:
+    return torch.empty(tuple(key.shape[:-1]) + tuple(shape),
+                       dtype=torch.float32, device=key.device)
+
+
 def uniform(key: torch.Tensor, shape, minval: float, maxval: float
             ) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32, minval, maxval), bit for bit.
@@ -168,6 +173,8 @@ def uniform(key: torch.Tensor, shape, minval: float, maxval: float
     into one rounding. Here the product is exact in float64 and so is the
     sum (at most 47 significant bits), so rounding it once to float32 gives
     the fused result."""
+    if key.is_meta:     # shapes only: nothing to draw
+        return _meta_draw(key, shape)
     lo, hi = np.float32(minval), np.float32(maxval)
     span = float(hi - lo)                       # float32 subtraction, as JAX
     words = bits(key, shape)
@@ -205,5 +212,7 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """jax.random.normal(key, shape, float32): sqrt(2) erf_inv(u) with u
     uniform on (-1, 1), u bit for bit and the result within a few ulp."""
+    if key.is_meta:
+        return _meta_draw(key, shape)
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
     return _SQRT2 * _erfinv(uniform(key, shape, float(lo), 1.0))

@@ -4,8 +4,11 @@ benchmark's readers of them (fedbench/metrics/).
 With no profiler running a span never enters `record_function`. Under a
 CPU torch.profiler the helper's calls give the spans the code makes: one
 `fhe.key_split` per key split, one `fhe.serialize` / `fhe.deserialize`
-per blob written / read, one `fhe.slice` per streamed slice, and one
-outermost `fhe.pack` / `fhe.unpack` a round. The readers are held to
+per blob written / read, one `fhe.slice` per streamed slice, one
+outermost `fhe.pack` / `fhe.unpack` a round, and in `fhe_fedavg` one
+`fhe.tree_flatten` and `fhe.tree_split` a client, one merge
+`fhe.tree_split`, `fhe.encrypted_part`, `fhe.plain_average` and
+`fhe.tree_unflatten`. The readers are held to
 synthetic traces, and the breakdown labels an idle gap with the innermost
 program span."""
 
@@ -81,6 +84,7 @@ def test_no_profiler_never_enters_record_function(monkeypatch, helper,
     helper.decrypt(helper.computeWeightedAverage(blobs, WEIGHTS), DIMS)
     helper.fedavg_round(vectors, WEIGHTS, DIMS, max_chunks=5)
     helper.encrypt_cohort(vectors)
+    T.fhe_fedavg(helper, _trees(), WEIGHTS, T.SelectivePolicy(rate=0.1))
 
 
 def test_profiler_enters_each_span_once():
@@ -158,10 +162,54 @@ def test_streamed_round_spans(helper, vectors):
         assert pack.end <= s.ts and s.end <= unpack.ts
 
 
+def _trees():
+    """Three state dicts of 1,000 values each in 4 leaves."""
+    rng = np.random.default_rng(9)
+    shapes = (("a.weight", (20, 30)), ("a.bias", (30,)), ("b.weight", (10, 9)),
+              ("b.norm", (280,)))
+    return [collections.OrderedDict(
+        (k, torch.as_tensor(rng.standard_normal(s).astype(np.float32)))
+        for k, s in shapes) for _ in WEIGHTS]
+
+
+def test_fhe_fedavg_spans(helper):
+    """A selective round: three flattens and three splits, one merge, one
+    encrypted part (holding the streamed round's pack and unpack), one
+    plain average and one unflatten, in that order; the three readers of
+    the `selective` cell read them."""
+    trees = _trees()
+    got = []
+    t = _traced(lambda: got.append(T.fhe_fedavg(
+        helper, trees, WEIGHTS, T.SelectivePolicy(rate=0.1))))
+    want = T.plain_fedavg(trees, WEIGHTS)
+    for k in want:
+        torch.testing.assert_close(got[0][k], want[k], atol=1e-6, rtol=0)
+    names = ("fhe.tree_flatten", "fhe.tree_split", "fhe.encrypted_part",
+             "fhe.plain_average", "fhe.tree_unflatten")
+    order = [e.name for e in _outermost(t, *names)]
+    assert order == ["fhe.tree_flatten"] * 3 + ["fhe.tree_split"] * 3 + [
+        "fhe.encrypted_part", "fhe.plain_average", "fhe.tree_split",
+        "fhe.tree_unflatten"]
+    (enc,) = _names(t, "fhe.encrypted_part")
+    packs = _names(t, "fhe.pack")
+    assert packs and all(_inside(e, enc) for e in packs)
+    reading = _reading(t)
+    for name, spans_ in (
+            ("tree_ms.selective", ("fhe.tree_flatten", "fhe.tree_split",
+                                   "fhe.tree_unflatten")),
+            ("plain_ms.selective", ("fhe.plain_average",)),
+            ("encrypted_ms.selective", ("fhe.encrypted_part",))):
+        value = spec.load_reader(name)(reading)
+        assert value == pytest.approx(1e-3 * sum(
+            e.dur for e in _outermost(t, *spans_)))
+        assert value > 0
+
+
 def _synthetic(rounds=2) -> tr.Trace:
     """A window of 1000 us: two outermost `fhe.key_split` spans, one with
     a nested split, launches inside and outside them; a serialise, a
-    deserialise, a pack with a nested pack, an unpack."""
+    deserialise, a pack with a nested pack, an unpack; a tree round's
+    flatten, split, encrypted part, plain average and unflatten."""
     ev = tr.Event
     host = [
         ev(tr.WINDOW, "user_annotation", 0, 1000),
@@ -182,6 +230,12 @@ def _synthetic(rounds=2) -> tr.Trace:
         ev("fhe.pack", "user_annotation", 600, 80),
         ev("fhe.pack", "user_annotation", 610, 40),
         ev("fhe.unpack", "user_annotation", 800, 20),
+        ev("fhe.tree_flatten", "user_annotation", 830, 10),
+        ev("fhe.tree_split", "user_annotation", 842, 6),
+        ev("fhe.encrypted_part", "user_annotation", 850, 40),
+        ev("fhe.plain_average", "user_annotation", 900, 30),
+        ev("fhe.tree_split", "user_annotation", 935, 4),
+        ev("fhe.tree_unflatten", "user_annotation", 940, 8),
     ]
     return tr.Trace([], sorted(host, key=lambda e: (e.ts, -e.dur)),
                     (0.0, 1000.0), rounds)
@@ -201,6 +255,9 @@ def _reading(trace):
     ("key_launches.cohort", 4 / 2),
     ("wire_ms.bytes", 1e-3 * (50 + 30) / 2),
     ("staging_ms.streamed", 1e-3 * (80 + 20) / 2),
+    ("tree_ms.selective", 1e-3 * (10 + 6 + 4 + 8) / 2),
+    ("plain_ms.selective", 1e-3 * 30 / 2),
+    ("encrypted_ms.selective", 1e-3 * 40 / 2),
 ])
 def test_span_readers(name, want):
     read = spec.load_reader(name)
