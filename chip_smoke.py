@@ -51,7 +51,13 @@ Phases (each raises on failure, so the script exits non-zero):
      chunks), slot mode at 100,000 values, and
      fhe_fedavg over three CNNOriginalFedAvg state_dicts (FULL, rate 0.1,
      the two conv layers) loaded back into a module and run forward; every
-     result within 1e-6 of its plaintext reference;
+     result within 1e-6 of its plaintext reference; then the tree path:
+     the same policies over CUDA copies of those state_dicts (fhe_fedavg's
+     card path, csrc/tree_average.cu) equal bit for bit to the host path's
+     trees under a second helper of the same seed, and the kernel's three
+     entries bit-exact against their plain versions at the DeepSeek-V2-Lite
+     shard's layout (153 leaves, rate 0.1: 3 x 53,506,181 values gathered
+     and scattered, 3 x 481,554,811 averaged), timed;
   8. time each phase after a warm-up;
   9. the threshold path (ckks/threshold.py, fed/threshold_api.py): known
      answers on the card at mkhe_bench's point (batched ceremonies equal
@@ -253,7 +259,7 @@ from fhe_fed_tpu_torch.benchmarks import mkhe_bench, masking_bench
 from fhe_fed_tpu_torch.benchmarks import param_sweep, train_synth
 from fhe_fed_tpu_torch.benchmarks import microprof
 from fhe_fed_tpu_torch.data.synth import make_synth_images
-from fhe_fed_tpu_torch.fed import masking as M
+from fhe_fed_tpu_torch.fed import masking as M, tree_average
 from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 from fhe_fed_tpu_torch.models import zoo
@@ -305,7 +311,13 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
                        "jax/_src/prng.py _threefry_split_foldlike (XLA "
                        "threefry2x32)"),
 }
+# Not Pallas kernels: the JAX package's numpy flatten, split, f64 average
+# and merge of a model's tree, on the host.
+KERNELS.update({name: ("fhe_fed_tpu_torch/csrc/tree_average.cu",
+                       "fhe_fed_tpu/fed/fedavg.py fhe_fedavg (host numpy)")
+                for name in tree_average.NAMES})
 PATH_KERNELS = {   # the kernels each driven path must launch
+    "tree": tree_average.NAMES,
     "fedavg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
                "decode_fused"),
     "rotation": ("ntt_fused", "intt_fused"),
@@ -1065,6 +1077,101 @@ def run_api_path(hs: dict, cnn_vecs, bert_vecs, slot_vecs,
         outs[f"fhe_fedavg_{name}"] = fhe_fedavg(h, state_dicts, w, policy)
     torch.cuda.synchronize()
     return outs, {m: b[0] for m, b in blobs.items()}
+
+
+def tree_helpers(cryptodir: pathlib.Path, dev, seed: int = 41) -> list:
+    """Two symmetric, dense-packed CKKS helpers of one seed, loaded from
+    `cryptodir`: the host path and the card path of fhe_fedavg draw the
+    same keys."""
+    hs = [CKKS(batchSize=4096, scaleFactorBits=52, cryptodir=str(cryptodir),
+               device=dev, dense_pack=True, symmetric=True, seed=seed)
+          for _ in range(2)]
+    for h in hs:
+        h.loadCryptoParams()
+    return hs
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def run_tree_path(hs: list, state_dicts, dev) -> list:
+    """fhe_fedavg under each of POLICIES over the CPU state_dicts (the
+    host path, hs[0]) and over their CUDA copies (the card path, hs[1]);
+    raise unless the trees are equal bit for bit. Returns the card path's
+    trees."""
+    card = [collections.OrderedDict((k, v.to(dev)) for k, v in sd.items())
+            for sd in state_dicts]
+    outs = []
+    for name, policy in POLICIES.items():
+        want = fhe_fedavg(hs[0], state_dicts, API_WEIGHTS, policy)
+        got = fhe_fedavg(hs[1], card, API_WEIGHTS, policy)
+        bad = [k for k in want if k not in got
+               or not same_bits(got[k], want[k])]
+        if list(got) != list(want) or bad or not all(
+                v.device.type == "cpu" for v in got.values()):
+            raise AssertionError(f"tree path {name}: the card path differs "
+                                 f"from the host path at {bad or list(got)}")
+        outs.append(got)
+    return outs
+
+
+def shard_cohort(dev, gen):
+    """The DeepSeek-V2-Lite shard's 153 leaves (the zoo's layout) for
+    N_CLIENTS clients, as views of one (clients, 535,060,992) normal draw
+    on the card, under SelectivePolicy(rate=0.1), the benchmark cell's."""
+    built = zoo.build("deepseek_v2_lite_shard", device="meta")
+    sizes = [v.numel() for v in built.params.values()]
+    x = torch.randn((N_CLIENTS, sum(sizes)), generator=gen, device=dev)
+    offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    leaves = [[row[o:o + n] for o, n in zip(offs, sizes)] for row in x]
+    return tree_average.Cohort(tree_average.leaf_plan(
+        sizes, list(built.params), SelectivePolicy(rate=0.1)), leaves,
+        API_WEIGHTS)
+
+
+def record_tree(recs, dev, gen, reps: int = 5) -> None:
+    """The tree kernel's three entries against their plain versions at the
+    shard's layout: each input byte read once, each output byte written
+    once (the average: K + 1 float32 a plain position; gather and scatter:
+    2 a gathered or scattered value)."""
+    c = shard_cohort(dev, gen)
+    P, E = int(c.plan.plain[-1]), int(c.plan.enc[-1])
+    K = len(c.leaves)
+    outs = [torch.zeros(int(c.plan.out[-1]), device=dev) for _ in range(4)]
+    tree_average.average(c, outs[0])
+    tree_average.average_plain(c, outs[1])
+    _record(recs, "tree_average", outs[0], outs[1],
+            lambda: tree_average.average(c, outs[0]),
+            lambda: tree_average.average_plain(c, outs[1]), reps,
+            (0, 4 * (K + 1) * P), shape=[K, P])
+    enc = tree_average.gather(c)
+    _record(recs, "tree_gather", enc, tree_average.gather_plain(c),
+            lambda: tree_average.gather(c),
+            lambda: tree_average.gather_plain(c), reps, (0, 2 * 4 * K * E))
+    dec = enc[0]
+    tree_average.scatter(c, dec, outs[2])
+    tree_average.scatter_plain(c, dec, outs[3])
+    _record(recs, "tree_scatter", outs[2], outs[3],
+            lambda: tree_average.scatter(c, dec, outs[2]),
+            lambda: tree_average.scatter_plain(c, dec, outs[3]), reps,
+            (0, 2 * 4 * E), shape=[E])
+
+
+def tree_path(dev, gpu: str, cryptodir: pathlib.Path, state_dicts,
+              gen) -> tuple[dict, list]:
+    """The card path of fhe_fedavg against the host path (POLICIES over
+    the CNN's state_dicts), then the kernel records at the shard's
+    layout."""
+    hs = tree_helpers(cryptodir, dev)
+    _, counts = drive("tree", lambda: run_tree_path(hs, state_dicts, dev))
+    print(f"tree path: card path == host path bit for bit under "
+          f"{sorted(POLICIES)} launches {counts}", flush=True)
+    recs: list = []
+    record_tree(recs, dev, gen)
+    print_records(recs, gpu)
+    return counts, recs
 
 
 def check_api(outs: dict, wants: dict, blobs: dict, state_dicts,
@@ -3018,6 +3125,9 @@ def main() -> int:
               f"{us['threefry_sampling'] / us['api_encrypt']:.4f} ({gpu})",
               flush=True)
 
+    tree_counts, tree_recs = tree_path(dev, gpu, ROOT / "build" /
+                                       "api_cryptodir", sds, gen)
+    recs += tree_recs
     rbg_counts, rbg_recs = rbg_path(dev, gpu, params, values, cnn_vecs,
                                     cnn_want)
     recs += rbg_recs
@@ -3045,7 +3155,7 @@ def main() -> int:
     for c in (fed_counts, rot_counts, mult_counts, api_counts, thr_counts,
               mask_counts, deep_counts, ring_counts, zoo_counts,
               sweep_counts, attack_counts, drivers_counts, md_counts,
-              bench_counts, rbg_counts):
+              bench_counts, rbg_counts, tree_counts):
         launches.update(c)
     for r in recs:   # K1: the launches of the record's body
         r["launches"] = launches[r["name"] + (f".{r['body']}" if "body" in r

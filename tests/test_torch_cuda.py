@@ -13,11 +13,14 @@ threshold ceremonies and the masking scheme's online phase on the card
 equal to the CPU; the Philox kernel (csrc/philox_rbg.cu) bit for bit
 against its plain version and the CPU at the bench's shapes; the key
 split kernel (csrc/threefry_split.cu) against the CPU's split of either
-PRNG, one launch a split and no synchronise; and the rbg
+PRNG, one launch a split and no synchronise; the rbg
 draws, bytes and rounds on the card equal to the CPU's (which the CPU
-tests hold against JAX's rbg).
+tests hold against JAX's rbg); and fhe_fedavg's card path (the tree
+kernel, csrc/tree_average.cu) equal bit for bit to its host path on CPU
+copies of the same trees, with its launches counted.
 """
 
+import collections
 import dataclasses
 import math
 
@@ -27,6 +30,9 @@ import torch
 
 import chip_smoke
 from fhe_fed_tpu_torch import bench, cuda_lib, CKKS
+from fhe_fed_tpu_torch import SelectivePolicy, fhe_fedavg
+from fhe_fed_tpu_torch.fed import tree_average as TA
+from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
 from fhe_fed_tpu_torch.ntt import ntt as ntt_mod
@@ -1078,3 +1084,116 @@ def test_bench_threefry_round_on_card_equals_cpu(dev, symmetric):
     assert got["cuda"][2].is_cuda
     for a, b in zip(got["cuda"], got["cpu"]):
         assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+TREE_POLICIES = dict(chip_smoke.POLICIES, **{
+    "rate_1.0": SelectivePolicy(rate=1.0),
+    "layer_mask_list": SelectivePolicy(layer_mask=[0, 2, 5]),
+    "callable_on_paths": SelectivePolicy(
+        layer_mask=lambda i, path: path.endswith(".weight"), rate=0.3),
+    "nothing_encrypted": SelectivePolicy(layer_mask=[]),
+})
+
+
+def _card_trees(dev, seed=3):
+    """Three state dicts on the card: leaves of 1, 4,095, 4,097 and 0
+    values, a bfloat16 leaf, a non-contiguous one (a transpose) and a 3-d
+    one."""
+    gen = _gen(dev, seed)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return [collections.OrderedDict([
+        ("a.bias", leaf(1)), ("a.weight", leaf(4095)),
+        ("b.weight", leaf(4097)), ("b.bias", leaf(0)),
+        ("c.weight", leaf(33, 17).bfloat16()), ("d.weight", leaf(40, 9).t()),
+        ("d.bias", leaf(3, 5, 7))]) for _ in range(3)]
+
+
+@pytest.fixture(scope="module")
+def tree_dir(dev, tmp_path_factory):
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
+    return chip_smoke.write_cryptodir(params,
+                                      tmp_path_factory.mktemp("tree"))
+
+
+@pytest.mark.parametrize("use_bytes", [False, True])
+@pytest.mark.parametrize("policy", list(TREE_POLICIES))
+def test_tree_card_path_equals_host_path(dev, tree_dir, policy, use_bytes):
+    """fhe_fedavg over trees on the card equals it over their .cpu()
+    copies bit for bit, two helpers of one seed: the host path launches no
+    tree kernel, the card path one gather and one scatter where something
+    is encrypted and one average where something is not."""
+    trees = _card_trees(dev)
+    cpu = [collections.OrderedDict((k, v.cpu()) for k, v in t.items())
+           for t in trees]
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = TREE_POLICIES[policy]
+    cuda_lib.launches.clear()
+    want = fhe_fedavg(hs[0], cpu, chip_smoke.API_WEIGHTS, pol, use_bytes)
+    assert not any(cuda_lib.launches[n] for n in TA.NAMES)
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol, use_bytes)
+    plan = TA.leaf_plan([v.numel() for v in trees[0].values()],
+                        list(trees[0]), pol)
+    enc, plain = int(plan.enc[-1] > 0), int(plan.plain[-1] > 0)
+    assert {n: cuda_lib.launches[n] for n in TA.NAMES} == {
+        "tree_gather": enc, "tree_average": plain, "tree_scatter": enc}
+    assert list(got) == list(want)
+    for k in got:
+        assert got[k].device.type == "cpu"
+        assert chip_smoke.same_bits(got[k], want[k]), k
+
+
+def test_tree_chip_smoke_path_small(dev, tree_dir):
+    """chip_smoke's tree path over the CNN's state_dicts."""
+    outs, counts = chip_smoke.drive("tree", lambda: chip_smoke.run_tree_path(
+        chip_smoke.tree_helpers(tree_dir, dev), chip_smoke.cnn_state_dicts(),
+        dev))
+    assert len(outs) == len(chip_smoke.POLICIES)
+    assert counts["tree_average"] == 2 and counts["tree_gather"] == 3
+
+
+class _Counting:
+    """A helper whose fedavg_round counts the values it is given."""
+
+    def __init__(self, helper):
+        self.helper, self.values = helper, 0
+
+    def __getattr__(self, name):
+        return getattr(self.helper, name)
+
+    def fedavg_round(self, vectors, *args, **kwargs):
+        self.values += sum(int(np.asarray(v).size) for v in vectors)
+        return self.helper.fedavg_round(vectors, *args, **kwargs)
+
+
+def test_tree_card_path_at_the_deepseek_shard(dev, tree_dir):
+    """One round at the DeepSeek-V2-Lite shard's 153-leaf layout on the
+    card, rate 0.1: the encrypting call gets 3 x 53,506,181 values, one
+    launch of each entry; the plain positions equal the plain version's
+    f64 average bit for bit and the encrypted ones lie within 1e-6 of
+    it."""
+    c = chip_smoke.shard_cohort(dev, _gen(dev, 7))
+    built = zoo.build("deepseek_v2_lite_shard", device="meta")
+    trees = [collections.OrderedDict(
+        (k, x.view(v.shape)) for (k, v), x in zip(built.params.items(), lv))
+        for lv in c.leaves]
+    helper = _Counting(chip_smoke.tree_helpers(tree_dir, dev)[0])
+    cuda_lib.launches.clear()
+    got = fhe_fedavg(helper, trees, chip_smoke.API_WEIGHTS,
+                     SelectivePolicy(rate=0.1))
+    assert helper.values == 3 * 53_506_181
+    assert {n: cuda_lib.launches[n] for n in TA.NAMES} == dict.fromkeys(
+        TA.NAMES, 1)
+    assert list(got) == list(built.params)
+    want = c.empty_output()
+    full = SelectivePolicy(layer_mask=[])
+    TA.average_plain(TA.Cohort(TA.leaf_plan(c.plan.sizes, list(got), full),
+                               c.leaves, chip_smoke.API_WEIGHTS), want)
+    want = want.cpu()
+    for (k, leaf), kk, o, n in zip(got.items(), c.plan.k.tolist(),
+                                   c.plan.out.tolist(), c.plan.sizes.tolist()):
+        assert tuple(leaf.shape) == tuple(built.params[k].shape)
+        flat = leaf.reshape(-1)
+        assert chip_smoke.same_bits(flat[kk:], want[o + kk:o + n]), k
+        assert float((flat[:kk] - want[o:o + kk]).abs().max()) <= 1e-6, k
