@@ -52,10 +52,11 @@ Phases (each raises on failure, so the script exits non-zero):
      fhe_fedavg over three CNNOriginalFedAvg state_dicts (FULL, rate 0.1,
      the two conv layers) loaded back into a module and run forward; every
      result within 1e-6 of its plaintext reference; then the tree path:
-     the same policies over CUDA copies of those state_dicts (fhe_fedavg's
-     card path, csrc/tree_average.cu) equal bit for bit to the host path's
-     trees under a second helper of the same seed, and the kernel's three
-     entries bit-exact against their plain versions at the DeepSeek-V2-Lite
+     the same policies over CUDA copies of those state_dicts (fhe_fedavg
+     on the card, csrc/tree_average.cu) equal bit for bit to the same
+     flow's trees over the CPU state_dicts under a second helper of the
+     same seed, and the kernel's three entries bit-exact against their
+     plain versions at the DeepSeek-V2-Lite
      shard's layout (153 leaves, rate 0.1: 3 x 53,506,181 values gathered
      and scattered, 3 x 481,554,811 averaged), timed;
   8. time each phase after a warm-up;
@@ -1081,8 +1082,8 @@ def run_api_path(hs: dict, cnn_vecs, bert_vecs, slot_vecs,
 
 def tree_helpers(cryptodir: pathlib.Path, dev, seed: int = 41) -> list:
     """Two symmetric, dense-packed CKKS helpers of one seed, loaded from
-    `cryptodir`: the host path and the card path of fhe_fedavg draw the
-    same keys."""
+    `cryptodir`: fhe_fedavg on the CPU and on the card draws the same
+    keys."""
     hs = [CKKS(batchSize=4096, scaleFactorBits=52, cryptodir=str(cryptodir),
                device=dev, dense_pack=True, symmetric=True, seed=seed)
           for _ in range(2)]
@@ -1097,9 +1098,9 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def run_tree_path(hs: list, state_dicts, dev) -> list:
-    """fhe_fedavg under each of POLICIES over the CPU state_dicts (the
-    host path, hs[0]) and over their CUDA copies (the card path, hs[1]);
-    raise unless the trees are equal bit for bit. Returns the card path's
+    """fhe_fedavg under each of POLICIES over the CPU state_dicts (hs[0],
+    the plain entries) and over their CUDA copies (hs[1], the kernel);
+    raise unless the trees are equal bit for bit. Returns the card's
     trees."""
     card = [collections.OrderedDict((k, v.to(dev)) for k, v in sd.items())
             for sd in state_dicts]
@@ -1111,8 +1112,8 @@ def run_tree_path(hs: list, state_dicts, dev) -> list:
                or not same_bits(got[k], want[k])]
         if list(got) != list(want) or bad or not all(
                 v.device.type == "cpu" for v in got.values()):
-            raise AssertionError(f"tree path {name}: the card path differs "
-                                 f"from the host path at {bad or list(got)}")
+            raise AssertionError(f"tree path {name}: the card differs "
+                                 f"from the CPU at {bad or list(got)}")
         outs.append(got)
     return outs
 
@@ -1161,12 +1162,12 @@ def record_tree(recs, dev, gen, reps: int = 5) -> None:
 
 def tree_path(dev, gpu: str, cryptodir: pathlib.Path, state_dicts,
               gen) -> tuple[dict, list]:
-    """The card path of fhe_fedavg against the host path (POLICIES over
-    the CNN's state_dicts), then the kernel records at the shard's
+    """fhe_fedavg on the card against the same flow on the CPU (POLICIES
+    over the CNN's state_dicts), then the kernel records at the shard's
     layout."""
     hs = tree_helpers(cryptodir, dev)
     _, counts = drive("tree", lambda: run_tree_path(hs, state_dicts, dev))
-    print(f"tree path: card path == host path bit for bit under "
+    print(f"tree path: card == CPU bit for bit under "
           f"{sorted(POLICIES)} launches {counts}", flush=True)
     recs: list = []
     record_tree(recs, dev, gen)

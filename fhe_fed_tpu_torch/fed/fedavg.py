@@ -1,11 +1,11 @@
 """Federated averaging under encryption over nested containers of tensors,
 as fhe_fed_tpu.fed.fedavg.
 
-The whole model is flattened once into one vector, encrypted in one cohort
-call, aggregated in one weighted sum and unflattened. Selective encryption
-(by layer, or the first `rate` fraction of every tensor) is a per-leaf
-policy: the encrypted segments of all leaves are concatenated and run as
-one ciphertext batch, the plain remainder is averaged directly.
+Selective encryption (by layer, or the first `rate` fraction of every
+tensor) is a per-leaf policy, planned once by `tree_average.leaf_plan`:
+the encrypted prefixes of all leaves are concatenated into one vector a
+client and run as one ciphertext batch, the plain remainder is averaged
+directly.
 
 Leaves are ordered as `jax.tree_util.tree_flatten` orders them, so a
 `layer_mask` picks the same leaves in both packages: a plain dict by
@@ -15,30 +15,27 @@ keys and positions joined by "." (a state_dict's leaf: its key, as
 "model.layers.3.self_attn.q_proj.weight"); a callable `layer_mask` is
 given (index, path).
 
-`fhe_fedavg` takes one of two paths, by what its input is:
-
-- the card path, when every leaf of every client is a floating CUDA tensor
-  on one device (a model's state dicts where training left them): the
-  kernel csrc/tree_average.cu (fed/tree_average.py) gathers the encrypted
-  prefixes into one (K, E) buffer and averages the plain remainder in
-  float64 into one float32 output in layout order, reading the leaves in
-  place; the K encrypted vectors go to the host for the scheme's calls,
-  and their decrypted average is scattered into the same output, which
-  then comes to the host in one copy;
-- the host path, for anything else (numpy arrays, CPU tensors, devices
-  mixed): every leaf copied to the host, flattened, split, averaged and
-  merged in numpy, as the JAX package does.
-
-Both give the same result bit for bit (the same float64 sum in the same
-order; the scheme gets the same vectors) as float32 CPU tensors in the
-input's containers: on the card path, views of one buffer.
+`fhe_fedavg` runs one flow for every tree, on the leaves' device when
+every leaf of every client is a tensor on one device (a model's state
+dicts where training left them) and on the CPU otherwise (numpy arrays,
+JAX arrays, scalars, devices mixed): tree_average gathers the encrypted
+prefixes into one (K, E) buffer and averages the plain remainder in
+float64 into one float32 output in layout order, reading the leaves in
+place; the K encrypted vectors go to the host for the scheme's calls, and
+their decrypted average is scattered into the same output, whose leaves
+come back as float32 CPU views of one buffer in the input's containers.
+On the card the entries launch the kernel csrc/tree_average.cu, on the
+CPU they run their plain versions; either gives the JAX package's result
+bit for bit.
 
 Each stage of `fhe_fedavg` is a span (utils/spans.py): `fhe.tree_flatten`
-(the host path's flatten; the card path's leaf table), `fhe.tree_split`
-(the split and the merge; the gather with its copy to the host, and the
-scatter), `fhe.encrypted_part` (the scheme's calls), `fhe.plain_average`
-(the host's average; the kernel's launch) and `fhe.tree_unflatten` (the
-host's unflatten; the output's copy to the host and its views).
+(the leaves, their plan and the cohort's table), `fhe.tree_split` (the
+gather with its copy to the host, and the scatter), `fhe.plain_average`
+(the average), `fhe.encrypted_part` (the scheme's calls) and
+`fhe.tree_unflatten` (the output's copy to the host and its views).
+`flatten_params`, `split_by_policy`, `merge_by_policy` and
+`unflatten_params` keep the JAX package's numpy API, for `plain_fedavg`
+and the benchmarks.
 """
 
 from __future__ import annotations
@@ -176,22 +173,12 @@ def unflatten_params(flat, spec):
 def split_by_policy(flat, spec, policy: SelectivePolicy):
     """Split a flat model vector into (encrypted_part, plain_part, plan);
     plan records per-leaf (enc_len, plain_len) so the split is invertible.
-    The policy sees each leaf's index and path."""
-    _, _, sizes, paths = spec
-    enc_segs, plain_segs, plan = [], [], []
-    off = 0
-    for idx, (sz, path) in enumerate(zip(sizes, paths)):
-        leaf = flat[off:off + sz]
-        off += sz
-        k = policy.enc_count(sz) if policy.leaf_selected(idx, path) else 0
-        enc_segs.append(leaf[:k])
-        plain_segs.append(leaf[k:])
-        plan.append((k, sz - k))
-    enc = (np.concatenate(enc_segs) if enc_segs
-           else np.zeros(0, np.float32))
-    plain = (np.concatenate(plain_segs) if plain_segs
-             else np.zeros(0, np.float32))
-    return enc, plain, plan
+    The plan is tree_average.leaf_plan's: the policy sees each leaf's index
+    and path."""
+    p = tree_average.leaf_plan(spec[2], spec[3], policy)
+    segs = list(zip(p.out.tolist(), p.k.tolist(), p.sizes.tolist()))
+    return (_cat([flat[o:o + k] for o, k, _ in segs]),
+            _cat([flat[o + k:o + n] for o, k, n in segs]), p.plan)
 
 
 @traced("fhe.tree_split")
@@ -203,7 +190,11 @@ def merge_by_policy(enc, plain, plan):
         out.append(plain[po:po + r])
         eo += k
         po += r
-    return np.concatenate(out) if out else np.zeros(0, np.float32)
+    return _cat(out)
+
+
+def _cat(segs: list) -> np.ndarray:
+    return np.concatenate(segs) if segs else np.zeros(0, np.float32)
 
 
 def fhe_fedavg(scheme, client_params: list, weights: list[float],
@@ -217,78 +208,29 @@ def fhe_fedavg(scheme, client_params: list, weights: list[float],
         computeWeightedAverage / decrypt); by default the cohort goes
         through scheme.fedavg_round where the scheme has one.
 
-    Returns the aggregated container of float32 CPU tensors (a state_dict
-    comes back as an OrderedDict that `load_state_dict` takes). The plain
-    remainder of a selective policy is averaged directly in f64: on the
-    card where every leaf is a floating CUDA tensor on one device, the
-    leaves then returned as views of one fresh host buffer; on the host
-    otherwise (the module docstring has the two paths).
+    Returns the aggregated container of float32 CPU tensors, views of one
+    fresh host buffer (a state_dict comes back as an OrderedDict that
+    `load_state_dict` takes). The plain remainder of a selective policy is
+    averaged directly in f64, on the leaves' device (the module docstring
+    has the flow).
     """
     if len(client_params) != len(weights):
         raise ValueError("one weight per client")
-    leaves = [tree_leaves(p) for p in client_params]
-    if _on_one_card(leaves):
-        return _fhe_fedavg_card(scheme, client_params[0], leaves, weights,
-                                policy, use_bytes)
-    flats, specs = zip(*(flatten_params(p) for p in client_params))
-    spec = specs[0]
-
-    encs, plains = [], []
-    plan = None
-    for f in flats:
-        e, pl, plan = split_by_policy(f, spec, policy)
-        encs.append(e)
-        plains.append(pl)
-
-    enc_out = (_encrypted_part(scheme, encs, weights, use_bytes)
-               if encs[0].size else np.zeros(0, np.float32))
-
-    if plains[0].size:
-        with span("fhe.plain_average"):
-            plain_out = sum(w * p.astype(np.float64)
-                            for w, p in zip(weights, plains)
-                            ).astype(np.float32)
-    else:
-        plain_out = np.zeros(0, np.float32)
-
-    return unflatten_params(merge_by_policy(enc_out, plain_out, plan), spec)
-
-
-def _encrypted_part(scheme, encs: list, weights, use_bytes: bool):
-    """The decrypted weighted average of the K encrypted vectors, float32
-    on the host."""
-    with span("fhe.encrypted_part"):
-        if not use_bytes and hasattr(scheme, "fedavg_round"):
-            return scheme.fedavg_round(
-                encs, list(weights), encs[0].size).astype(np.float32)
-        blobs = [scheme.encrypt(e) for e in encs]
-        agg_blob = scheme.computeWeightedAverage(blobs, list(weights))
-        return scheme.decrypt(agg_blob, encs[0].size).astype(np.float32)
-
-
-def _on_one_card(leaves: list) -> bool:
-    """Every leaf of every client a floating CUDA tensor, all on one
-    device (and a leaf at least)."""
-    flat = [x for lv in leaves for x in lv]
-    return bool(flat) and all(
-        torch.is_tensor(x) and x.is_cuda and x.is_floating_point()
-        for x in flat) and len({x.device for x in flat}) == 1
-
-
-def _fhe_fedavg_card(scheme, tree, leaves: list, weights, policy,
-                     use_bytes: bool):
-    """fhe_fedavg's card path: `leaves` are the clients' leaves (`tree` is
-    the first client's container)."""
     with span("fhe.tree_flatten"):
         paths: list = []
-        struct = _flatten(tree, [], paths)
+        struct = _flatten(client_params[0], [], paths)
+        if not paths:
+            return _unflatten(struct, iter([]))
+        leaves = [[_tensor(x) for x in tree_leaves(p)] for p in client_params]
+        devices = {x.device for lv in leaves for x in lv}
+        dev = devices.pop() if len(devices) == 1 else torch.device("cpu")
         shapes = [tuple(x.shape) for x in leaves[0]]
-        # Rounds as the host path's astype(np.float32) does (float16 and
-        # bfloat16 exactly).
+        # Rounds as numpy's astype(np.float32) does (float16, bfloat16 and
+        # small integers exactly).
         cohort = tree_average.Cohort(
             tree_average.leaf_plan([x.numel() for x in leaves[0]], paths,
                                    policy),
-            [[x.detach().to(torch.float32).contiguous() for x in lv]
+            [[x.detach().to(dev, torch.float32).contiguous() for x in lv]
              for lv in leaves], weights)
         out = cohort.empty_output()
     plan = cohort.plan
@@ -310,13 +252,35 @@ def _fhe_fedavg_card(scheme, tree, leaves: list, weights, policy,
         return _unflatten(struct, iter(views))
 
 
+def _encrypted_part(scheme, encs: list, weights, use_bytes: bool):
+    """The decrypted weighted average of the K encrypted vectors, float32
+    on the host."""
+    with span("fhe.encrypted_part"):
+        if not use_bytes and hasattr(scheme, "fedavg_round"):
+            return scheme.fedavg_round(
+                encs, list(weights), encs[0].size).astype(np.float32)
+        blobs = [scheme.encrypt(e) for e in encs]
+        agg_blob = scheme.computeWeightedAverage(blobs, list(weights))
+        return scheme.decrypt(agg_blob, encs[0].size).astype(np.float32)
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
-    """A new host copy of `t`. From the card it lands in pinned memory
-    from torch's host caching allocator, which copies 2.14 GB in ~39 ms on
-    an H100 where a pageable copy took 150-900 ms; a block is reused only
-    once the tensors on it are freed."""
-    return torch.empty(t.shape, dtype=t.dtype,
-                       pin_memory=t.is_cuda).copy_(t)
+    """`t` on the host: a CPU tensor as it is; from the card a new copy in
+    pinned memory from torch's host caching allocator, which copies 2.14 GB
+    in ~39 ms on an H100 where a pageable copy took 150-900 ms; a block is
+    reused only once the tensors on it are freed."""
+    if not t.is_cuda:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def _tensor(x) -> torch.Tensor:
+    """A leaf as a tensor: a tensor as it is; anything else (numpy and JAX
+    arrays, scalars) as a float32 CPU tensor, converted as the JAX package
+    converts it."""
+    if torch.is_tensor(x):
+        return x
+    return torch.from_numpy(np.asarray(x).astype(np.float32))
 
 
 def plain_fedavg(client_params: list, weights: list[float]):

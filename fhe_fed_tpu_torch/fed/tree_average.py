@@ -2,21 +2,22 @@
 the kernel csrc/tree_average.cu reads, and its three entries.
 
 A policy gives each leaf i of n_i values an encrypted prefix of k_i
-(`leaf_plan`, as split_by_policy plans it). Over K clients' leaves:
+(`leaf_plan`, the one plan of fhe_fedavg and split_by_policy). Over K
+clients' leaves:
 
 - `gather`: the (K, E) float32 encrypted vectors, each client's prefixes
   concatenated in leaf order (split_by_policy's `enc`);
 - `average`: the plain remainder of every leaf averaged in float64 in the
-  order of the host's `sum(w * p.astype(np.float64) ...)`, as float32, in
-  its positions of the (N,) output in layout order;
+  order of the JAX package's `sum(w * p.astype(np.float64) ...)`, as
+  float32, in its positions of the (N,) output in layout order;
 - `scatter`: the (E,) decrypted average in the encrypted positions of the
   same output (merge_by_policy's result, once both ran).
 
 A cohort of CUDA leaves launches the kernel, one launch an entry, counted
 in `cuda_lib.launches` as `tree_gather`, `tree_average` and
-`tree_scatter`; CPU leaves take the plain versions here, which the tests
-hold to the host path and chip_smoke.py holds the kernel to on the card.
-The leaves are read in place: no flattened copy of a client.
+`tree_scatter`; a cohort of CPU leaves runs the plain versions here, which
+the tests hold to the JAX package and chip_smoke.py holds the kernel to on
+the card. The leaves are read in place: no flattened copy of a client.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ class LeafPlan:
 
 def leaf_plan(sizes, paths, policy) -> LeafPlan:
     """The plan of `policy` (a SelectivePolicy) over leaves of `sizes`
-    with their `paths`, as split_by_policy decides it leaf by leaf."""
+    with their `paths`: leaf i's prefix is policy.enc_count(n_i) values if
+    policy.leaf_selected(i, path_i), else none."""
     sizes = np.asarray(sizes, dtype=np.int64).reshape(-1)
     k = np.array([policy.enc_count(int(n))
                   if policy.leaf_selected(i, path) else 0

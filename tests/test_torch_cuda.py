@@ -15,9 +15,10 @@ against its plain version and the CPU at the bench's shapes; the key
 split kernel (csrc/threefry_split.cu) against the CPU's split of either
 PRNG, one launch a split and no synchronise; the rbg
 draws, bytes and rounds on the card equal to the CPU's (which the CPU
-tests hold against JAX's rbg); and fhe_fedavg's card path (the tree
-kernel, csrc/tree_average.cu) equal bit for bit to its host path on CPU
-copies of the same trees, with its launches counted.
+tests hold against JAX's rbg); and fhe_fedavg on the card (the tree
+kernel, csrc/tree_average.cu) equal bit for bit to the same flow on CPU
+copies of the same trees (which the CPU tests hold to the JAX package),
+with its launches counted.
 """
 
 import collections
@@ -1121,9 +1122,9 @@ def tree_dir(dev, tmp_path_factory):
 @pytest.mark.parametrize("policy", list(TREE_POLICIES))
 def test_tree_card_path_equals_host_path(dev, tree_dir, policy, use_bytes):
     """fhe_fedavg over trees on the card equals it over their .cpu()
-    copies bit for bit, two helpers of one seed: the host path launches no
-    tree kernel, the card path one gather and one scatter where something
-    is encrypted and one average where something is not."""
+    copies bit for bit, two helpers of one seed: the flow on the CPU
+    launches no tree kernel, on the card one gather and one scatter where
+    something is encrypted and one average where something is not."""
     trees = _card_trees(dev)
     cpu = [collections.OrderedDict((k, v.cpu()) for k, v in t.items())
            for t in trees]
@@ -1141,6 +1142,54 @@ def test_tree_card_path_equals_host_path(dev, tree_dir, policy, use_bytes):
     assert list(got) == list(want)
     for k in got:
         assert got[k].device.type == "cpu"
+        assert chip_smoke.same_bits(got[k], want[k]), k
+
+
+def test_tree_card_path_keeps_an_int64_leaf_on_the_card(dev, tree_dir):
+    """A Linear + BatchNorm1d model's state dicts on the card, an int64
+    `num_batches_tracked` among float32 leaves: one launch of each entry
+    (the tree stays on the card), and the tree equals the same flow's over
+    the .cpu() copies bit for bit."""
+    trees = []
+    for c in range(3):
+        torch.manual_seed(c)
+        m = torch.nn.Sequential(torch.nn.Linear(5, 4),
+                                torch.nn.BatchNorm1d(4)).to(dev)
+        m(torch.randn(8, 5, device=dev))
+        m[1].num_batches_tracked += 1000 * c
+        trees.append(m.state_dict())
+    assert trees[0]["1.num_batches_tracked"].dtype == torch.int64
+    cpu = [collections.OrderedDict((k, v.cpu()) for k, v in t.items())
+           for t in trees]
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = SelectivePolicy(layer_mask=[0, 2, 5], rate=0.5)
+    want = fhe_fedavg(hs[0], cpu, chip_smoke.API_WEIGHTS, pol)
+    cuda_lib.launches.clear()
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol)
+    assert {n: cuda_lib.launches[n] for n in TA.NAMES} == dict.fromkeys(
+        TA.NAMES, 1)
+    assert list(got) == list(want)
+    for k in got:
+        assert got[k].device.type == "cpu"
+        assert chip_smoke.same_bits(got[k], want[k]), k
+
+
+def test_tree_mixed_devices_run_on_the_cpu(dev, tree_dir):
+    """A tree with leaves on the card and on the CPU takes the flow on the
+    CPU: no tree launch, and the tree equals the flow's over .cpu()
+    copies bit for bit."""
+    trees = _card_trees(dev)
+    trees[1]["a.weight"] = trees[1]["a.weight"].cpu()
+    cpu = [collections.OrderedDict((k, v.cpu()) for k, v in t.items())
+           for t in trees]
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = TREE_POLICIES["rate_0.1"]
+    want = fhe_fedavg(hs[0], cpu, chip_smoke.API_WEIGHTS, pol)
+    cuda_lib.launches.clear()
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol)
+    assert not any(cuda_lib.launches[n] for n in TA.NAMES)
+    assert list(got) == list(want)
+    for k in got:
         assert chip_smoke.same_bits(got[k], want[k]), k
 
 

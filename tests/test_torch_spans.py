@@ -6,8 +6,8 @@ CPU torch.profiler the helper's calls give the spans the code makes: one
 `fhe.key_split` per key split, one `fhe.serialize` / `fhe.deserialize`
 per blob written / read, one `fhe.slice` per streamed slice, one
 outermost `fhe.pack` / `fhe.unpack` a round, and in `fhe_fedavg` one
-`fhe.tree_flatten` and `fhe.tree_split` a client, one merge
-`fhe.tree_split`, `fhe.encrypted_part`, `fhe.plain_average` and
+`fhe.tree_flatten`, a gather's `fhe.tree_split`, `fhe.plain_average`,
+`fhe.encrypted_part`, a scatter's `fhe.tree_split` and
 `fhe.tree_unflatten`. The readers are held to
 synthetic traces, and the breakdown labels an idle gap with the innermost
 program span."""
@@ -173,10 +173,11 @@ def _trees():
 
 
 def test_fhe_fedavg_spans(helper):
-    """A selective round: three flattens and three splits, one merge, one
-    encrypted part (holding the streamed round's pack and unpack), one
-    plain average and one unflatten, in that order; the three readers of
-    the `selective` cell read them."""
+    """A selective round on CPU tensors takes the one flow: the flatten,
+    the gather's split, the plain average, the encrypted part (holding the
+    streamed round's pack and unpack), the scatter's split and the
+    unflatten, in that order; the three readers of the `selective` cell
+    read them."""
     trees = _trees()
     got = []
     t = _traced(lambda: got.append(T.fhe_fedavg(
@@ -187,9 +188,9 @@ def test_fhe_fedavg_spans(helper):
     names = ("fhe.tree_flatten", "fhe.tree_split", "fhe.encrypted_part",
              "fhe.plain_average", "fhe.tree_unflatten")
     order = [e.name for e in _outermost(t, *names)]
-    assert order == ["fhe.tree_flatten"] * 3 + ["fhe.tree_split"] * 3 + [
-        "fhe.encrypted_part", "fhe.plain_average", "fhe.tree_split",
-        "fhe.tree_unflatten"]
+    assert order == ["fhe.tree_flatten", "fhe.tree_split",
+                     "fhe.plain_average", "fhe.encrypted_part",
+                     "fhe.tree_split", "fhe.tree_unflatten"]
     (enc,) = _names(t, "fhe.encrypted_part")
     packs = _names(t, "fhe.pack")
     assert packs and all(_inside(e, enc) for e in packs)

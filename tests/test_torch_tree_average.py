@@ -1,12 +1,13 @@
-"""The card path of fhe_fedavg, as far as the CPU reaches it: the leaf
-plan (fed/tree_average.py `leaf_plan`) against split_by_policy's plan and
+"""fhe_fedavg's one flow, as far as the CPU reaches it: the leaf plan
+(fed/tree_average.py `leaf_plan`) against split_by_policy's plan and
 segment offsets, on the CNN's state dict and on the DeepSeek-V2-Lite
 shard's 153 leaves; the plain versions of the kernel's three entries
-against the host path's split, average and merge, bit for bit; and the
-dispatch, which sends numpy arrays, CPU tensors and mixed trees down the
-host path without touching the kernel's wrappers. The kernel itself is
-held to these plain versions and to the host path on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+against the numpy split, average and merge, bit for bit; and fhe_fedavg
+over CPU tensors, numpy arrays, mixed trees, bfloat16, float64 and int64
+leaves, which runs those plain entries without touching the kernel's
+wrappers and gives the JAX package's tree bit for bit. The kernel itself
+is held to these plain versions and to the same flow on the CPU on the
+card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import collections
 
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+import fhe_fed_tpu as J
 import fhe_fed_tpu_torch as T
+from fhe_fed_tpu_torch import cuda_lib
 from fhe_fed_tpu_torch.fed import fedavg as F
 from fhe_fed_tpu_torch.fed import tree_average as TA
 from fhe_fed_tpu_torch.models import zoo
@@ -102,7 +105,7 @@ def _trees(sizes=(1, 4095, 4097, 0, 6, 30), clients=3, seed=0):
 def test_plain_entries_match_the_host_split_average_and_merge(name):
     """gather_plain is split_by_policy's encrypted vector of each client;
     average_plain then scatter_plain of a decrypted vector give
-    merge_by_policy of it and the host's f64 average, bit for bit."""
+    merge_by_policy of it and the numpy f64 average, bit for bit."""
     policy, trees = POLICIES[name], _trees()
     flats, specs = zip(*(T.flatten_params(t) for t in trees))
     spec = specs[0]
@@ -138,34 +141,54 @@ def test_cohort_refuses_trees_that_differ():
 
 @pytest.fixture(scope="module")
 def helpers(tmp_path_factory):
-    """Make CPU helpers of one key pair and one seed."""
+    """Make helpers of one key pair and one seed, the port's on the CPU
+    (threefry there), as tests/test_torch_fedavg.py makes them."""
     d = str(tmp_path_factory.mktemp("tree"))
-    T.CKKS("ckks", 128, 40, cryptodir=d, seed=3, symmetric=True,
-           device="cpu").genCryptoContextAndKeyGen()
+    J.CKKS("ckks", 128, 40, cryptodir=d, seed=3).genCryptoContextAndKeyGen()
 
-    def make():
-        h = T.CKKS("ckks", 128, 40, cryptodir=d, seed=5, symmetric=True,
-                   device="cpu")
+    def make(cls):
+        h = cls("ckks", 128, 40, cryptodir=d, seed=5,
+                **({"device": "cpu"} if cls is T.CKKS else {}))
         h.loadCryptoParams()
         return h
     return make
 
 
-@pytest.mark.parametrize("name", list(POLICIES))
-def test_card_path_flow_on_cpu_tensors_equals_the_host_path(name, helpers):
-    """The card path's steps (leaf table, gather, average, the scheme's
-    round, scatter, one output and its views), run here with the plain
-    entries, give the host path's tree bit for bit under two helpers of
-    one seed; the leaves come back as float32 CPU views of one buffer."""
-    trees, policy = _trees(sizes=(1, 129, 0, 6, 30)), POLICIES[name]
-    want = T.fhe_fedavg(helpers(), trees, WEIGHTS, policy)
-    got = F._fhe_fedavg_card(helpers(), trees[0],
-                             [list(t.values()) for t in trees], WEIGHTS,
-                             policy, False)
+def _jax_policy(policy, paths):
+    """`policy` as a JAX SelectivePolicy, whose callable mask is given no
+    path: the same leaves selected by index."""
+    mask = policy.layer_mask
+    if callable(mask):
+        mask = [i for i, path in enumerate(paths)
+                if policy.leaf_selected(i, path)]
+    return J.SelectivePolicy(layer_mask=mask, rate=policy.rate)
+
+
+def _numpy_tree(tree):
+    """A tree of tensors as numpy, bfloat16 widened exactly to float32
+    (numpy has no bfloat16)."""
+    return collections.OrderedDict(
+        (k, v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy())
+        if torch.is_tensor(v) else (k, v) for k, v in tree.items())
+
+
+def _check_jax(helpers, trees, policy, use_bytes=False):
+    """fhe_fedavg of `trees` through the plain entries, none of the
+    kernel's wrappers reached and no launch counted, bit-equal to the JAX
+    package's over the trees as numpy; the leaves float32 CPU views of one
+    buffer."""
+    launches = dict(cuda_lib.launches)
+    got = T.fhe_fedavg(helpers(T.CKKS), trees, WEIGHTS, policy, use_bytes)
+    assert dict(cuda_lib.launches) == launches
+    want = J.fhe_fedavg(helpers(J.CKKS), [_numpy_tree(t) for t in trees],
+                        WEIGHTS, _jax_policy(policy, list(trees[0])),
+                        use_bytes)
     assert type(got) is collections.OrderedDict and list(got) == list(want)
     for k in got:
-        assert got[k].dtype == torch.float32 and got[k].shape == want[k].shape
-        assert torch.equal(got[k].view(torch.int32), want[k].view(torch.int32))
+        assert got[k].dtype == torch.float32 and got[k].device.type == "cpu"
+        assert tuple(got[k].shape) == want[k].shape, k
+        np.testing.assert_array_equal(got[k].numpy().view(np.int32),
+                                      want[k].view(np.int32), err_msg=k)
     storages = {v.untyped_storage().data_ptr() for v in got.values()}
     assert len(storages) == 1
 
@@ -174,31 +197,90 @@ def _refuse(*args, **kwargs):
     raise AssertionError("the kernel's wrappers were reached")
 
 
+@pytest.fixture
+def plain_entries(monkeypatch):
+    """Count the calls of the plain entries; make the kernel's launch
+    raise."""
+    calls = collections.Counter()
+    for name in ("gather_plain", "average_plain", "scatter_plain"):
+        def counted(*args, _name=name, _fn=getattr(TA, name)):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(TA, name, counted)
+    monkeypatch.setattr(TA.Cohort, "_launch", _refuse)
+    return calls
+
+
+@pytest.mark.parametrize("name", list(POLICIES))
+def test_card_path_flow_on_cpu_tensors_equals_the_host_path(
+        name, helpers, plain_entries):
+    """fhe_fedavg over float32 CPU tensors under each policy takes the one
+    flow through the plain entries and gives the JAX package's tree bit
+    for bit under two helpers of one seed; the leaves come back as float32
+    CPU views of one buffer."""
+    trees, policy = _trees(sizes=(1, 129, 0, 6, 30)), POLICIES[name]
+    _check_jax(helpers, trees, policy)
+    plan = TA.leaf_plan([v.numel() for v in trees[0].values()],
+                        list(trees[0]), policy)
+    enc, plain = int(plan.enc[-1] > 0), int(plan.plain[-1] > 0)
+    assert dict(plain_entries) == {
+        k: v for k, v in (("gather_plain", enc), ("average_plain", plain),
+                          ("scatter_plain", enc)) if v}
+
+
 @pytest.mark.parametrize("kind", ["numpy", "cpu_tensors", "mixed",
                                   "bfloat16"])
 def test_dispatch_sends_host_trees_down_the_host_path(kind, helpers,
-                                                      monkeypatch):
+                                                      plain_entries):
     """Numpy trees, CPU tensors (bfloat16 ones too, widened exactly to
-    float32 on the host) and a mix take the host path: the kernel's
-    wrappers are never reached (patched to raise), and the result is the
-    host path's."""
+    float32) and a mix take the one flow on the CPU: each plain entry runs
+    once, the kernel is never launched, and the tree is the JAX
+    package's."""
     trees = _trees(sizes=(7, 300, 0, 6, 30))
     if kind == "bfloat16":
         trees = [collections.OrderedDict((k, v.bfloat16()) for k, v in
                                          t.items()) for t in trees]
     elif kind == "numpy":
-        trees = [collections.OrderedDict((k, v.numpy()) for k, v in
-                                         t.items()) for t in trees]
+        trees = [_numpy_tree(t) for t in trees]
     elif kind == "mixed":
         trees[1] = collections.OrderedDict(
             (k, v.numpy() if i % 2 else v)
             for i, (k, v) in enumerate(trees[1].items()))
-    for name in ("Cohort", "gather", "average", "scatter"):
-        monkeypatch.setattr(TA, name, _refuse)
-    got = T.fhe_fedavg(helpers(), trees, WEIGHTS,
-                       T.SelectivePolicy(rate=0.1))
-    want = T.plain_fedavg(trees, WEIGHTS)
-    assert list(got) == list(want)
-    for k in got:
-        assert got[k].dtype == torch.float32 and got[k].device.type == "cpu"
-        torch.testing.assert_close(got[k], want[k], atol=1e-5, rtol=0)
+    _check_jax(helpers, trees, T.SelectivePolicy(rate=0.1))
+    assert dict(plain_entries) == dict.fromkeys(
+        ("gather_plain", "average_plain", "scatter_plain"), 1)
+
+
+def _batchnorm_state_dicts():
+    """Three state dicts of a Linear + BatchNorm1d model: float32 CPU
+    tensors and BatchNorm's 0-d int64 `num_batches_tracked`, each client's
+    its own."""
+    out = []
+    for c in range(3):
+        torch.manual_seed(c)
+        m = torch.nn.Sequential(torch.nn.Linear(5, 4),
+                                torch.nn.BatchNorm1d(4))
+        m(torch.randn(8, 5))     # training mode: running stats, counter 1
+        m[1].num_batches_tracked += 1000 * c
+        out.append(m.state_dict())
+    return out
+
+
+@pytest.mark.parametrize("use_bytes", [False, True])
+@pytest.mark.parametrize("kind", ["int64_leaf", "float64_numpy"])
+def test_one_flow_on_int64_and_float64_leaves(kind, use_bytes, helpers,
+                                              plain_entries):
+    """A BatchNorm model's state dicts (an int64 leaf among float32 ones)
+    and a tree of float64 numpy arrays, rounded to float32 as numpy rounds
+    them: the JAX package's tree bit for bit, through the plain entries,
+    on fedavg_round and on the bytes path."""
+    if kind == "int64_leaf":
+        trees = _batchnorm_state_dicts()
+        assert trees[2]["1.num_batches_tracked"].dtype == torch.int64
+    else:
+        trees = [collections.OrderedDict((k, v.double().numpy()) for k, v
+                                         in t.items()) for t in _trees()]
+    _check_jax(helpers, trees, T.SelectivePolicy(layer_mask=[0, 2, 5],
+                                                 rate=0.5), use_bytes)
+    assert dict(plain_entries) == dict.fromkeys(
+        ("gather_plain", "average_plain", "scatter_plain"), 1)
