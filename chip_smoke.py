@@ -9,22 +9,23 @@ Phases (each raises on failure, so the script exits non-zero):
      into build/fhe_fed_tpu_torch/);
   3. hold every kernel against its plain PyTorch version, bit-exactly, at
      the shapes the paths give it, and time both with CUDA events: K1, K3
-     and K4 at the FedAvg shapes, K1 at each of the multiply path's six
-     calls for its 2048 ciphertexts (the key switch's inverse and its
-     forward over the extended basis, ModDown's inverse on the special
-     prime and its forward, the rescale's inverse and forward), K1 at
-     N = 2048 (the mma_sync body by the shape rule), K3 also at 64 clients,
-     K4 also at 11 live limbs, K2 at the rotation path's shapes and a
-     64-chunk batch, and K2 against K1 at N = 8192 (the threshold path's
-     shapes are held in phase 9). Each record carries the call's time
-     (`ms`, CUDA events around back-to-back calls, the wrapper's host work
-     included where it exceeds the kernel's) and the kernel's own
-     (`device_ms`, the same calls replayed from a CUDA graph), its bound
-     (bytes over 3.35 TB/s, int8 operations over 1,979 TOP/s) and, for K1,
-     the torch._int_mm yardstick of its digit products (gemm_library_ms),
-     for K3 torch.sum over the client axis (stream_library_ms: the same
-     bytes, not K3's function), for K4 its device time over rotating copies
-     of its input, more than the 50 MB L2 (cold_device_ms);
+     and K4 at the FedAvg shapes and there the encode, encrypt and decrypt
+     passes around the NTT (csrc/rlwe_passes.cu), K1 at each of the multiply
+     path's six calls for its 2048 ciphertexts (the key switch's inverse and
+     its forward over the extended basis, ModDown's inverse on the special
+     prime and its forward, the rescale's inverse and forward), K1 at N =
+     2048 (the mma_sync body by the shape rule), K3 also at 64 clients, K4
+     also at 11 live limbs, K2 at the rotation path's shapes and a 64-chunk
+     batch, and K2 against K1 at N = 8192 (the threshold path's shapes are
+     held in phase 9). Each record carries the call's time (`ms`, CUDA
+     events around back-to-back calls, the wrapper's host work included
+     where it exceeds the kernel's) and the kernel's own (`device_ms`, the
+     same calls replayed from a CUDA graph), its bound (bytes over 3.35
+     TB/s, int8 operations over 1,979 TOP/s) and, for K1, the torch._int_mm
+     yardstick of its digit products (gemm_library_ms), for K3 torch.sum
+     over the client axis (stream_library_ms: the same bytes, not K3's
+     function), for K4 its device time over rotating copies of its input,
+     more than the 50 MB L2 (cold_device_ms);
   4. the FedAvg path at the bench configuration (CNN_OriginalFedAvg,
      1,663,370 parameters x 3 clients, batch 4096 / scale 2^52 / N 8192,
      204 dense chunks) with the committed keys, its context and keys made
@@ -245,7 +246,7 @@ from fhe_fed_tpu_torch import CKKS, SelectivePolicy, fhe_fedavg, plain_fedavg
 from fhe_fed_tpu_torch import Masking, ThresholdCKKS
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, ntt as ntt_mod, pallas_ntt
 from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
-from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode
+from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode, rlwe_passes
 from fhe_fed_tpu_torch.ckks import keys, keyswitch as KS, slots as SL
 from fhe_fed_tpu_torch.ckks import threshold as thr
 from fhe_fed_tpu_torch.ckks import dist_ckks as DC
@@ -317,44 +318,61 @@ KERNELS = {   # wrapper name -> (source, TPU kernel it replaces)
 KERNELS.update({name: ("fhe_fed_tpu_torch/csrc/tree_average.cu",
                        "fhe_fed_tpu/fed/fedavg.py fhe_fedavg (host numpy)")
                 for name in tree_average.NAMES})
+# Not Pallas kernels: PyTorch's int64 elementwise glue around the NTT in the
+# secret-key encrypt and the decrypt (the plain versions
+# encoding.encode_plain, ops._encrypt_plain, ops._phase_plain).
+KERNELS.update({
+    "encode_pass": ("fhe_fed_tpu_torch/csrc/rlwe_passes.cu",
+                    "none: torch glue, fhe_fed_tpu_torch/ckks/encoding.py "
+                    "encode_coeff's digit chain, keys.lift_signed, add_mod"),
+    "encrypt_pass": ("fhe_fed_tpu_torch/csrc/rlwe_passes.cu",
+                     "none: torch glue, fhe_fed_tpu_torch/ckks/ops.py c0 = "
+                     "a*s + w_hat, c1 = -a and their stack"),
+    "decrypt_pass": ("fhe_fed_tpu_torch/csrc/rlwe_passes.cu",
+                     "none: torch glue, fhe_fed_tpu_torch/ckks/ops.py "
+                     "decrypt_residues' c0 + c1*s"),
+})
 PATH_KERNELS = {   # the kernels each driven path must launch
-    "tree": tree_average.NAMES,
+    "tree": (*tree_average.NAMES, *rlwe_passes.NAMES),
     "fedavg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-               "decode_fused"),
+               "decode_fused", *rlwe_passes.NAMES),
     "rotation": ("ntt_fused", "intt_fused"),
     "multiply": ("ntt_mxu_fused", "intt_mxu_fused"),
     # The paths whose CKKS / ThresholdCKKS helpers or round keys sample
-    # under rbg (the default on the card) also run the Philox kernel.
+    # under rbg (the default on the card) also run the Philox kernel. Every
+    # encode on the card runs the encode pass, every decrypt the decrypt
+    # pass, every secret-key encrypt the encrypt pass.
     "api": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-            "decode_fused", "philox_rbg"),
+            "decode_fused", "philox_rbg", *rlwe_passes.NAMES),
     "threshold": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                  "decode_fused", "philox_rbg"),
+                  "decode_fused", "philox_rbg", "encode_pass"),
     # Host Paillier and int64 ring sums: no kernel of ours; the path checks
     # that its tensors live on the card instead.
     "masking": (),
     # N = 32768 and 65536 have no four-step split: K2 serves both.
     "deep": ("ntt_fused", "intt_fused", "weighted_sum_fused", "decode_fused",
-             "philox_rbg"),
+             "philox_rbg", *rlwe_passes.NAMES),
     "ring65536": ("ntt_fused", "intt_fused", "weighted_sum_fused",
-                  "decode_fused"),
+                  "decode_fused", "encode_pass", "decrypt_pass"),
     "zoo": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-            "decode_fused", "philox_rbg"),
+            "decode_fused", "philox_rbg", *rlwe_passes.NAMES),
     "train_sweep": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                    "decode_fused", "philox_rbg"),
+                    "decode_fused", "philox_rbg", "encode_pass",
+                    "decrypt_pass"),
     # Autograd through the zoo's LeNet: cuDNN and cuBLAS, no kernel of
     # ours; the path checks that its gradients live on the card instead.
     "attack": (),
     "drivers": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                "decode_fused", "philox_rbg"),
+                "decode_fused", "philox_rbg", "encode_pass", "decrypt_pass"),
     # The dist transforms are plain torch (as in JAX): K1 serves the
     # clients x chunks round and the threshold decrypt, K3 both sums, K4
     # every decode.
     "multidevice": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-                    "decode_fused"),
+                    "decode_fused", "encode_pass", "decrypt_pass"),
     "bench": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-              "decode_fused", "philox_rbg"),
+              "decode_fused", "philox_rbg", *rlwe_passes.NAMES),
     "rbg": ("ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
-            "decode_fused", "philox_rbg"),
+            "decode_fused", "philox_rbg", *rlwe_passes.NAMES),
 }
 THR_PARTIES = 3
 THR_BATCH = 4096          # ThresholdCKKS(batch 4096): 407 chunks for the CNN
@@ -627,7 +645,38 @@ def check_kernels(ctx, sk, values, weights, gen, reps=10) -> list[dict]:
     agg = ops.weighted_sum(
         ctx, ops.encrypt_symmetric_stacked(ctx, sk, values, gen), weights)
     record_k4(recs, ctx, ops.decrypt_residues(ctx, sk, agg), agg.scale, reps)
+    record_passes(recs, ctx, sk, values, weights, gen, reps)
     return recs
+
+
+def record_passes(recs, ctx, sk, values, weights, gen, reps) -> None:
+    """The passes of csrc/rlwe_passes.cu at the main path's shapes against
+    their plain versions: the cohort's encode with its error, its encrypt
+    pass (c0 and c1) after the forward NTT, the aggregate's decrypt pass;
+    each bound by its bytes (the key's rows once)."""
+    L = ctx.params.chain_len
+    scale = ctx.params.scale
+    key = (sk.s[:L], sk.s_shoup[:L])
+    e = keys.cbd_coeffs(gen, values.shape)
+    w = encoding.encode_coeff(ctx, values, scale, error=e)
+    _record(recs, "encode_pass", w,
+            encoding.encode_plain(ctx, values, scale, L, e),
+            lambda: encoding.encode_coeff(ctx, values, scale, error=e),
+            lambda: encoding.encode_plain(ctx, values, scale, L, e), reps,
+            (0, io_bytes(values, e, w)), shape=values.shape)
+    a = uniform_mod_q(gen, w.shape, ctx.params.moduli)
+    w_hat = ntt_mod.ntt(w, ctx.tables.slice_limbs(0, L))
+    ct = rlwe_passes.encrypt(ctx, sk, a, w_hat)
+    _record(recs, "encrypt_pass", ct, ops._encrypt_plain(ctx, sk, a, w_hat),
+            lambda: rlwe_passes.encrypt(ctx, sk, a, w_hat),
+            lambda: ops._encrypt_plain(ctx, sk, a, w_hat), reps,
+            (0, io_bytes(a, w_hat, ct, *key)), shape=a.shape)
+    agg = ops.weighted_sum(ctx, ops.Ciphertext(ct, scale, 0), weights).data
+    ph = rlwe_passes.decrypt(ctx, sk, agg)
+    _record(recs, "decrypt_pass", ph, ops._phase_plain(ctx, sk, agg),
+            lambda: rlwe_passes.decrypt(ctx, sk, agg),
+            lambda: ops._phase_plain(ctx, sk, agg), reps,
+            (0, io_bytes(agg, ph, *key)), shape=agg.shape)
 
 
 def k1_pair(forward: bool):
@@ -836,8 +885,9 @@ def check_deep_kernels(h: CKKS, cnn_vecs, gen, reps=10) -> list[dict]:
                       agg.scale, reps)
             del agg
             # K2 at the path's two batches: the cohort encrypt's forward
-            # (ops._sym_c0 on (clients, chunks, live, N)) and the
-            # decrypt's inverse (ops.decrypt_residues on (chunks, live, N)).
+            # (ops.encrypt_symmetric_core on (clients, chunks, live, N))
+            # and the decrypt's inverse (ops.decrypt_residues on (chunks,
+            # live, N)).
             tb = ctx.tables.slice_limbs(0, L)
             record_k2(recs, tb, (*values.shape[:2], L, ctx.ring_dim), True,
                       gen, reps)

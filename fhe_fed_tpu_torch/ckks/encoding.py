@@ -8,7 +8,9 @@ fhe_fed_tpu.ckks.encoding operation for operation.
 
 `decode_core` is the plain PyTorch version of kernel K4
 (ckks/pallas_decode.py); `decode_coeff` sends a CUDA tensor to the kernel
-and a CPU tensor to decode_core.
+and a CPU tensor to decode_core. `encode_plain` is the plain version of
+the encode pass (csrc/rlwe_passes.cu), which `encode_coeff` runs on the
+card.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from ..rns import modops
 from ..utils import dfloat
 from ..utils.spans import traced
-from . import pallas_decode
+from . import keys, pallas_decode, rlwe_passes
 from .params import CkksContext, DecodeConsts, ENCODE_DIGITS, DIGIT_BITS
 
 _F32 = torch.float32
@@ -30,12 +32,30 @@ _I64 = torch.int64
 
 @traced("fhe.encode")
 def encode_coeff(ctx: CkksContext, values: torch.Tensor, scale: float,
-                 num_limbs: int | None = None) -> torch.Tensor:
+                 num_limbs: int | None = None,
+                 error: torch.Tensor | None = None) -> torch.Tensor:
     """f32 values (..., N) -> int32 residues (..., L, N), coefficient order.
-    `scale` must be a power of two."""
+    `scale` must be a power of two. With `error`, small signed int32
+    coefficients (..., N), their lift is added mod q_l (the secret-key
+    encrypt's m + e). A CUDA tensor runs the encode pass of
+    csrc/rlwe_passes.cu (ckks/rlwe_passes.py), a CPU tensor encode_plain."""
     sb = math.log2(scale)
     if sb != int(sb):
         raise ValueError("vector encode requires a power-of-two scale")
+    L = num_limbs if num_limbs is not None else ctx.params.chain_len
+    if values.is_cuda:
+        return rlwe_passes.encode(ctx, values.to(_F32), scale, L, error)
+    if values.device.type != "cpu":
+        raise ValueError(f"no encode backend for device {values.device}")
+    return encode_plain(ctx, values, scale, L, error)
+
+
+def encode_plain(ctx: CkksContext, values: torch.Tensor, scale: float,
+                 L: int, error: torch.Tensor | None = None) -> torch.Tensor:
+    """The encode on plain tensors: round(m * scale) in f32 (exact: a
+    power-of-two scale), split into 16-bit digits by exact f32 ops, reduced
+    mod each q_l by Shoup multiplies in int64; then the error's lift added
+    mod q_l. The plain version of the encode pass."""
     t = torch.round(values.to(_F32) * float(np.float32(scale)))  # half-even
     sign = t < 0
     r = torch.abs(t)
@@ -45,7 +65,6 @@ def encode_coeff(ctx: CkksContext, values: torch.Tensor, scale: float,
         d = torch.floor(r / p)
         r = r - d * p
         digs.append((j, d))
-    L = num_limbs if num_limbs is not None else ctx.params.chain_len
     qb = ctx.q[:L, None]
     acc = torch.zeros(values.shape[:-1] + (L, values.shape[-1]), dtype=_I64,
                       device=values.device)
@@ -54,8 +73,12 @@ def encode_coeff(ctx: CkksContext, values: torch.Tensor, scale: float,
             d.to(_I64)[..., None, :], ctx.enc_pow[j, :L, None],
             ctx.enc_pow_shoup[j, :L, None], qb)
         acc = modops.add_mod(acc, term, qb)
-    return torch.where(sign[..., None, :], modops.neg_mod(acc, qb),
-                       acc).to(torch.int32)
+    pt = torch.where(sign[..., None, :], modops.neg_mod(acc, qb),
+                     acc).to(torch.int32)
+    if error is None:
+        return pt
+    return modops.add_mod(pt, keys.lift_signed(error, ctx.q[:L]),
+                          qb).to(torch.int32)
 
 
 def encode_scalar(moduli: tuple[int, ...], w: float, scale: float):

@@ -15,9 +15,11 @@ arguments. The step draws from `rng`, which is either
     first client's key, at shape (K, ...) (prng.batch_rule).
 
 Kernels on the path: the NTT (K1 or K2, via ntt/ntt.py) in encrypt,
-decrypt and rescale, the weighted sum (K3, ckks/pallas_agg.py) and the
-decode (K4, via encoding.decode_coeff). The glue between them is plain
-PyTorch.
+decrypt and rescale, the weighted sum (K3, ckks/pallas_agg.py), the
+decode (K4, via encoding.decode_coeff), and around the NTT the secret-key
+encrypt's encode and encrypt passes and the decrypt's phase pass
+(csrc/rlwe_passes.cu, ckks/rlwe_passes.py). The rest of the glue between
+them is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..rns import modops
 from ..ntt import ntt as ntt_mod
 from ..utils import prng
 from ..utils.spans import traced
-from . import encoding, pallas_agg
+from . import encoding, pallas_agg, rlwe_passes
 from .params import CkksContext
 from .keys import (SecretKey, PublicKey, uniform_mod_q, ternary_coeffs,
                    cbd_coeffs, lift_signed, uniform_mod_q_key,
@@ -123,29 +125,37 @@ def _split_clients(rng, k: int):
     return rng if isinstance(rng, torch.Generator) else prng.split(rng, k)
 
 
-def _sym_c0(ctx: CkksContext, sk: SecretKey, values: torch.Tensor,
-            a_hat: torch.Tensor, e: torch.Tensor, scale: float
-            ) -> torch.Tensor:
-    """c0 = a*s + NTT(m + e) (..., L, N) int64: one NTT batch."""
-    L = ctx.params.chain_len
+def _encrypt_plain(ctx: CkksContext, sk: SecretKey, a_hat: torch.Tensor,
+                   w_hat: torch.Tensor, c1: bool = True) -> torch.Tensor:
+    """c0 = a_hat*s + w_hat mod q in int64 and, with `c1`, c1 = -a_hat,
+    stacked as (..., 2, L, N) int32; the plain version of the encrypt
+    pass."""
+    L = a_hat.shape[-2]
     qb = ctx.q[:L, None]
-    pt = encoding.encode_coeff(ctx, values, scale)
-    w = modops.add_mod(pt, lift_signed(e, ctx.q[:L]), qb).to(torch.int32)
-    w_hat = ntt_mod.ntt(w, _tables(ctx, L))
-    return modops.add_mod(
+    c0 = modops.add_mod(
         modops.mul_mod_shoup(a_hat, sk.s[:L], sk.s_shoup[:L], qb), w_hat, qb)
+    if not c1:
+        return c0.to(torch.int32)
+    return torch.stack([c0, modops.neg_mod(a_hat, qb)],
+                       dim=-3).to(torch.int32)
 
 
 def encrypt_symmetric_core(ctx: CkksContext, sk: SecretKey,
                            values: torch.Tensor, a_hat: torch.Tensor,
-                           e: torch.Tensor, scale: float) -> torch.Tensor:
+                           e: torch.Tensor, scale: float,
+                           c1: bool = True) -> torch.Tensor:
     """Secret-key RLWE: ct = (a*s + NTT(m + e), -a), with `a_hat` (..., L, N)
     uniform in the evaluation domain and `e` (..., N) small signed error.
-    values (..., N) f32 -> data (..., 2, L, N) int32. One NTT batch."""
-    qb = ctx.q[:ctx.params.chain_len, None]
-    c0 = _sym_c0(ctx, sk, values, a_hat, e, scale)
-    c1 = modops.neg_mod(a_hat, qb)
-    return torch.stack([c0, c1], dim=-3).to(torch.int32)
+    values (..., N) f32 -> data (..., 2, L, N) int32, or c0 alone (..., L,
+    N) without `c1`. One NTT batch; around it on the card the encode and
+    encrypt passes of csrc/rlwe_passes.cu, on the CPU encoding.encode_plain
+    and _encrypt_plain."""
+    L = ctx.params.chain_len
+    w = encoding.encode_coeff(ctx, values, scale, error=e)
+    w_hat = ntt_mod.ntt(w, _tables(ctx, L))
+    if w_hat.is_cuda:
+        return rlwe_passes.encrypt(ctx, sk, a_hat, w_hat, c1)
+    return _encrypt_plain(ctx, sk, a_hat, w_hat, c1)
 
 
 def encrypt_symmetric(ctx: CkksContext, sk: SecretKey, values: torch.Tensor,
@@ -185,7 +195,7 @@ def encrypt_symmetric_seeded(ctx: CkksContext, sk: SecretKey,
     a_hat = uniform_mod_q_xor2(seed[:2], seed[2:],
                                (chunks, ctx.params.chain_len, n),
                                ctx.params.moduli)
-    c0 = _sym_c0(ctx, sk, values, a_hat, e, scale).to(torch.int32)
+    c0 = encrypt_symmetric_core(ctx, sk, values, a_hat, e, scale, c1=False)
     return SeededCiphertext(c0=c0, seed=seed, scale=scale, level=0)
 
 
@@ -263,13 +273,26 @@ def encrypt_stacked(ctx: CkksContext, pk: PublicKey, values: torch.Tensor,
 
 def decrypt_residues(ctx: CkksContext, sk: SecretKey,
                      ct: Ciphertext) -> torch.Tensor:
-    """Decrypt to coefficient-order residues (chunks, live, N) int32."""
-    live = ct.live_limbs
+    """Decrypt to coefficient-order residues (chunks, live, N) int32: the
+    phase c0 + c1*s (on the card the decrypt pass of csrc/rlwe_passes.cu,
+    on the CPU _phase_plain), then one inverse NTT batch."""
+    if ct.data.is_cuda:
+        phase = rlwe_passes.decrypt(ctx, sk, ct.data)
+    else:
+        phase = _phase_plain(ctx, sk, ct.data)
+    return ntt_mod.intt(phase, _tables(ctx, ct.live_limbs))
+
+
+def _phase_plain(ctx: CkksContext, sk: SecretKey,
+                 data: torch.Tensor) -> torch.Tensor:
+    """c0 + c1*s mod q of data (..., 2, live, N) in int64, as (..., live,
+    N) int32; the plain version of the decrypt pass."""
+    live = data.shape[-2]
     qb = ctx.q[:live, None]
-    c0, c1 = ct.data.unbind(dim=-3)
-    phase = modops.add_mod(
-        c0, modops.mul_mod_shoup(c1, sk.s[:live], sk.s_shoup[:live], qb), qb)
-    return ntt_mod.intt(phase.to(torch.int32), _tables(ctx, live))
+    c0, c1 = data.unbind(dim=-3)
+    return modops.add_mod(
+        c0, modops.mul_mod_shoup(c1, sk.s[:live], sk.s_shoup[:live], qb),
+        qb).to(torch.int32)
 
 
 def decrypt(ctx: CkksContext, sk: SecretKey, ct: Ciphertext) -> torch.Tensor:

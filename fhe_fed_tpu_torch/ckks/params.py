@@ -25,6 +25,19 @@ _HEADROOM_BITS = 34
 ENCODE_DIGITS = 6          # 6 x 16-bit digits = 96 bits of |round(m * Delta)|
 DIGIT_BITS = 16
 _DIGIT_MASK = (1 << DIGIT_BITS) - 1
+# An integer-valued float32 is m * 2**k with m < 2**24 and k <= 127 - 23:
+# the encode pass (csrc/rlwe_passes.cu) reads 2**k mod q for k < 105.
+ENCODE_EXPS = 105
+
+
+def encode_table(moduli) -> np.ndarray:
+    """The encode pass's table: (L, ENCODE_EXPS, 2) uint32 pairs of
+    2**k mod q_l and its Shoup word floor((2**k mod q_l) * 2**32 / q_l)."""
+    qs = np.asarray(moduli, dtype=np.uint64)[:, None]
+    p = np.array([[pow(2, k, int(q)) for k in range(ENCODE_EXPS)]
+                  for q in moduli], dtype=np.uint64)
+    return np.stack([p, (p << np.uint64(32)) // qs], axis=-1).astype(
+        np.uint32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +160,7 @@ class CkksContext:
     pow32_shoup: torch.Tensor
     enc_pow: torch.Tensor          # (ENCODE_DIGITS, L) 2**(16j) mod q, int64
     enc_pow_shoup: torch.Tensor
+    enc_table: torch.Tensor        # encode_table(moduli) as int32 bits
     dec_consts: tuple              # tuple[DecodeConsts], index = live - 1
     tables: ntt_tables.NttTables   # all L limbs, special prime included
     rescale_inv: tuple             # per level: (q_top^-1 mod q_j, Shoup), int64
@@ -190,6 +204,8 @@ def make_context(params: CkksParams,
         pow32=t(pow32), pow32_shoup=t(modops.shoup_precompute(pow32, qs)),
         enc_pow=t(enc_pow),
         enc_pow_shoup=t(modops.shoup_precompute(enc_pow, qs[None, :])),
+        enc_table=torch.from_numpy(encode_table(moduli).view(np.int32)).to(
+            device),
         dec_consts=tuple(_make_decode_consts(moduli, live)
                          for live in range(1, params.chain_len + 1)),
         tables=ntt_tables.make_tables(n, moduli, device=device),

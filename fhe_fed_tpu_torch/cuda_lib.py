@@ -48,6 +48,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # out, x, w1, w2, mid_pair, limb_consts(host), B, L, n1, n2, forward,
     # stream
@@ -71,6 +72,14 @@ _SIGNATURES = {
     "fhe_tree_average": (_P, _P, _I, _I, _L, _P),
     # out, dec, table(device), leaves, clients, count, stream
     "fhe_tree_scatter": (_P, _P, _P, _I, _I, _L, _P),
+    # out, values, error(device or null), table(device), moduli(host),
+    # limbs, rows, n, scale, stream
+    "fhe_encode_pass": (_P, _P, _P, _P, _P, _I, _L, _I, _F, _P),
+    # out, a_hat, w_hat, s, s_shoup, moduli(host), limbs, rows, n, c1,
+    # stream
+    "fhe_encrypt_pass": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
+    # out, ct, s, s_shoup, moduli(host), live, rows, n, stream
+    "fhe_decrypt_pass": (_P, _P, _P, _P, _P, _I, _L, _I, _P),
 }
 
 

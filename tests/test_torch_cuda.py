@@ -18,7 +18,11 @@ draws, bytes and rounds on the card equal to the CPU's (which the CPU
 tests hold against JAX's rbg); and fhe_fedavg on the card (the tree
 kernel, csrc/tree_average.cu) equal bit for bit to the same flow on CPU
 copies of the same trees (which the CPU tests hold to the JAX package),
-with its launches counted.
+with its launches counted; and the encode, encrypt and decrypt passes
+(csrc/rlwe_passes.cu) bit for bit against their plain versions at the
+paths' shapes, against the CPU rehearsal at the edges and outside the
+plain version's range, and through whole encrypts and rounds against the
+CPU, one launch a pass.
 """
 
 import collections
@@ -39,9 +43,12 @@ from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
 from fhe_fed_tpu_torch.ntt import ntt as ntt_mod
 from fhe_fed_tpu_torch.ckks import params as P, serial as S, ops, encoding
 from fhe_fed_tpu_torch.ckks import pallas_agg, pallas_decode, keys
+from fhe_fed_tpu_torch.ckks import rlwe_passes
 from fhe_fed_tpu_torch.ckks import keyswitch as KS
 from fhe_fed_tpu_torch.ckks.keys import uniform_mod_q
 from fhe_fed_tpu_torch.utils import threefry as TF
+
+import rlwe_rehearsal as RR
 
 pytestmark = pytest.mark.cuda
 
@@ -345,7 +352,10 @@ def test_main_path_small(dev):
     values = torch.as_tensor(vals, device=dev)
     recs = chip_smoke.check_kernels(ctx, sk, values, weights, _gen(dev),
                                     reps=1)
-    assert [r["max_abs_err"] for r in recs] == [0.0] * 4
+    assert [r["name"] for r in recs] == [
+        "ntt_mxu_fused", "intt_mxu_fused", "weighted_sum_fused",
+        "decode_fused", *rlwe_passes.NAMES]
+    assert all(r["max_abs_err"] == 0.0 for r in recs)
     outs, _ = chip_smoke.drive("fedavg", lambda: chip_smoke.run_main_path(
         ctx, sk, pk, values, weights, _gen(dev)))
     assert chip_smoke.check_outputs(outs, want, 20000) <= chip_smoke.MAX_ERR
@@ -1246,3 +1256,146 @@ def test_tree_card_path_at_the_deepseek_shard(dev, tree_dir):
         flat = leaf.reshape(-1)
         assert chip_smoke.same_bits(flat[kk:], want[o + kk:o + n]), k
         assert float((flat[:kk] - want[o:o + kk]).abs().max()) <= 1e-6, k
+
+
+# The passes of csrc/rlwe_passes.cu at the paths' shapes: (case, leading
+# shape, mult_depth, c1): the cohort (3 clients x 204 chunks), a streamed
+# slice (3 x 1,024), a bytes client (204 chunks), the seeded encrypt (c0
+# alone) and the deep chain (3 x 51 chunks, 27 limbs, N 32768).
+PASS_CASES = [
+    ("cohort", (3, 204), 1, True),
+    ("streamed", (3, 1024), 1, True),
+    ("bytes", (204,), 1, True),
+    ("seeded", (204,), 1, False),
+    ("deep", (3, 51), 24, True),
+]
+
+
+def _pass_setup(dev, lead, mult_depth, seed):
+    ctx = P.make_context(P.make_params(batch=4096, scale_bits=52,
+                                       mult_depth=mult_depth), dev)
+    g = _gen(dev, seed)
+    sk, _ = keys.keygen(ctx, g)
+    return ctx, sk, g
+
+
+def _pass_launches(fn):
+    """fn()'s result and the passes' launches while it ran."""
+    before = {k: cuda_lib.launches[k] for k in rlwe_passes.NAMES}
+    out = fn()
+    return out, {k: cuda_lib.launches[k] - before[k]
+                 for k in rlwe_passes.NAMES}
+
+
+@pytest.mark.parametrize("case,lead,mult_depth,c1", PASS_CASES)
+def test_rlwe_passes_match_plain(dev, case, lead, mult_depth, c1):
+    """Each pass bit for bit against its plain version on the same CUDA
+    tensors: the encode with the error (the secret-key encrypt) and
+    without (encode_coeff: the public-key and distributed encodes), the
+    encrypt pass with c1 or c0 alone, the decrypt pass; one launch a
+    call."""
+    ctx, sk, g = _pass_setup(dev, lead, mult_depth, len(case))
+    L, n = ctx.params.chain_len, ctx.ring_dim
+    scale = ctx.params.scale
+    values = torch.randn((*lead, n), generator=g, device=dev)
+    values.view(-1)[:8] *= 1e6
+    e = keys.cbd_coeffs(g, (*lead, n))
+    got, k = _pass_launches(
+        lambda: encoding.encode_coeff(ctx, values, scale, error=e))
+    assert k == {"encode_pass": 1, "encrypt_pass": 0, "decrypt_pass": 0}
+    assert got.shape == (*lead, L, n) and got.dtype == torch.int32
+    assert torch.equal(got, encoding.encode_plain(ctx, values, scale, L, e))
+    pt, k = _pass_launches(lambda: encoding.encode_coeff(ctx, values, scale))
+    assert k["encode_pass"] == 1
+    assert torch.equal(pt, encoding.encode_plain(ctx, values, scale, L))
+    del pt
+
+    a = uniform_mod_q(g, (*lead, L, n), ctx.params.moduli)
+    w = ntt_mod.ntt(got, ctx.tables.slice_limbs(0, L))
+    del got
+    ct, k = _pass_launches(lambda: rlwe_passes.encrypt(ctx, sk, a, w, c1))
+    assert k == {"encode_pass": 0, "encrypt_pass": 1, "decrypt_pass": 0}
+    assert ct.shape == (*lead, *((2,) if c1 else ()), L, n)
+    assert torch.equal(ct, ops._encrypt_plain(ctx, sk, a, w, c1))
+    del a, w
+    data = ct if c1 else uniform_mod_q(g, (*lead, 2, L, n),
+                                       ctx.params.moduli)
+    ph, k = _pass_launches(lambda: rlwe_passes.decrypt(ctx, sk, data))
+    assert k == {"encode_pass": 0, "encrypt_pass": 0, "decrypt_pass": 1}
+    assert torch.equal(ph, ops._phase_plain(ctx, sk, data))
+
+
+@pytest.mark.parametrize("scale_bits", [52, 40])
+def test_encode_pass_at_the_edges(dev, scale_bits):
+    """The encode pass on the edges of the plain version's exact range
+    (+-0, rounding ties, negative values, |t| about 2**24 and just under
+    2**96, subnormals) equals the plain version on the card, the CPU's and
+    the rehearsal; outside it (pinned: csrc/rlwe_passes.cu states it),
+    t mod q_l exactly for finite |t| >= 2**96 and 0 for a non-finite t,
+    the error's lift added."""
+    ctx = P.make_context(P.make_params(batch=4096, scale_bits=scale_bits,
+                                       mult_depth=1), dev)
+    cpu = P.make_context(ctx.params, "cpu")
+    L, n = ctx.params.chain_len, ctx.ring_dim
+    scale = 2.0 ** scale_bits
+    vals = np.zeros((2, n), dtype=np.float32)
+    edges = RR.edge_values(scale_bits)
+    vals[0, :edges.size] = edges
+    vals[1] = np.random.default_rng(scale_bits).standard_normal(n)
+    e = torch.as_tensor(np.random.default_rng(1).integers(-10, 11, (2, n)),
+                        dtype=torch.int32)
+    v = torch.as_tensor(vals)
+    got = encoding.encode_coeff(ctx, v.to(dev), scale, error=e.to(dev))
+    assert torch.equal(got, encoding.encode_plain(ctx, v.to(dev), scale, L,
+                                                  e.to(dev)))
+    assert torch.equal(got.cpu(), encoding.encode_coeff(cpu, v, scale,
+                                                        error=e))
+    assert torch.equal(got.cpu(), RR.rehearse_encode(cpu, v, scale, L, e))
+
+    big = np.array([2.0 ** 96, -(2.0 ** 96), 1.5 * 2.0 ** 100,
+                    np.finfo(np.float32).max, -np.finfo(np.float32).max,
+                    2.0 ** 127, -(2.0 ** 104) * 3, 2.0 ** 96 * 5],
+                   dtype=np.float32)
+    got = encoding.encode_coeff(ctx, torch.as_tensor(big, device=dev), 1.0)
+    want = RR.exact_residues([int(x) for x in big.astype(np.float64)],
+                             ctx.params.moduli[:L])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    bad = torch.tensor([math.nan, math.inf, -math.inf, 3e38, -3e38, 0.0,
+                        -math.nan, 1e30], dtype=torch.float32)
+    eb = torch.tensor([0, -3, 5, 7, -1, 2, -10, 9], dtype=torch.int32)
+    got = encoding.encode_coeff(ctx, bad.to(dev), scale, error=eb.to(dev))
+    assert torch.equal(got.cpu(), RR.rehearse_encode(cpu, bad, scale, L, eb))
+    q = cpu.q[:L, None]
+    lift = torch.where(eb < 0, eb + q, eb).to(torch.int32)
+    assert torch.equal(got.cpu(), lift)
+
+
+@pytest.mark.parametrize("chunks", [204, 3])
+def test_stacked_encrypt_and_round_on_card_equal_cpu(dev, chunks):
+    """A whole encrypt_symmetric_stacked under an rbg key on the card (the
+    encode and encrypt passes around K1) gives the CPU's ciphertext bytes
+    (the plain versions); fedavg_round_fused gives the CPU's average bit
+    for bit; one launch of each pass a call."""
+    from fhe_fed_tpu_torch.utils import prng
+    params = P.make_params(batch=4096, scale_bits=52, mult_depth=1)
+    sk_bytes = (chip_smoke.KEY_DIR / "key-private.txt").read_bytes()
+    vals = np.random.default_rng(chunks).standard_normal(
+        (3, chunks, params.ring_dim)).astype(np.float32)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        ctx = P.make_context(params, d)
+        sk = S.deserialize_secret_key(sk_bytes, device=d)
+        v = torch.as_tensor(vals, device=d)
+        key = prng.key(11, "rbg", d)
+        (ct, rnd), k = _pass_launches(lambda: (
+            ops.encrypt_symmetric_stacked(ctx, sk, v, key),
+            ops.fedavg_round_fused(ctx, sk, v, key, [0.5, 0.2, 0.3])))
+        got[d.type] = (ct.data.cpu(), rnd.cpu())
+        if d.type == "cuda":
+            assert k == {"encode_pass": 2, "encrypt_pass": 2,
+                         "decrypt_pass": 1}
+        else:
+            assert not any(k.values())
+    assert got["cuda"][0].numpy().tobytes() == got["cpu"][0].numpy().tobytes()
+    assert torch.equal(got["cuda"][1].view(torch.int32),
+                       got["cpu"][1].view(torch.int32))
