@@ -56,10 +56,13 @@ Phases (each raises on failure, so the script exits non-zero):
      the same policies over CUDA copies of those state_dicts (fhe_fedavg
      on the card, csrc/tree_average.cu) equal bit for bit to the same
      flow's trees over the CPU state_dicts under a second helper of the
-     same seed, and the kernel's three entries bit-exact against their
-     plain versions at the DeepSeek-V2-Lite
-     shard's layout (153 leaves, rate 0.1: 3 x 53,506,181 values gathered
-     and scattered, 3 x 481,554,811 averaged), timed;
+     same seed, and so in bfloat16 (the card reads the leaves in place,
+     no leaf in tree_average.casts; the CPU casts them to float32 first),
+     and the kernel's three entries bit-exact against their plain
+     versions at the DeepSeek-V2-Lite shard's layout in float32 (153
+     leaves, rate 0.1: 3 x 53,506,181 values gathered and scattered, 3 x
+     481,554,811 averaged) and at the Kimi-Linear stage's in bfloat16
+     (493 leaves: 3 x 129,982,877 and 3 x 1,169,843,747), timed;
   8. time each phase after a warm-up;
   9. the threshold path (ckks/threshold.py, fed/threshold_api.py): known
      answers on the card at mkhe_bench's point (batched ceremonies equal
@@ -1150,31 +1153,48 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def run_tree_path(hs: list, state_dicts, dev) -> list:
     """fhe_fedavg under each of POLICIES over the CPU state_dicts (hs[0],
     the plain entries) and over their CUDA copies (hs[1], the kernel);
-    raise unless the trees are equal bit for bit. Returns the card's
-    trees."""
+    then over bfloat16 copies of the state_dicts: on the card, read in
+    place (no leaf in `tree_average.casts`), and on the CPU, where each
+    leaf is cast to float32 first. Raise unless the trees are equal bit
+    for bit. Returns the card's float32 trees."""
+    bf16 = [collections.OrderedDict((k, v.bfloat16()) for k, v in
+                                    sd.items()) for sd in state_dicts]
     card = [collections.OrderedDict((k, v.to(dev)) for k, v in sd.items())
             for sd in state_dicts]
+    card16 = [collections.OrderedDict((k, v.to(dev)) for k, v in sd.items())
+              for sd in bf16]
     outs = []
     for name, policy in POLICIES.items():
-        want = fhe_fedavg(hs[0], state_dicts, API_WEIGHTS, policy)
-        got = fhe_fedavg(hs[1], card, API_WEIGHTS, policy)
-        bad = [k for k in want if k not in got
-               or not same_bits(got[k], want[k])]
-        if list(got) != list(want) or bad or not all(
-                v.device.type == "cpu" for v in got.values()):
-            raise AssertionError(f"tree path {name}: the card differs "
-                                 f"from the CPU at {bad or list(got)}")
-        outs.append(got)
+        for label, cpu, cuda in (("float32", state_dicts, card),
+                                 ("bfloat16", bf16, card16)):
+            want = fhe_fedavg(hs[0], cpu, API_WEIGHTS, policy)
+            tree_average.casts.clear()
+            got = fhe_fedavg(hs[1], cuda, API_WEIGHTS, policy)
+            bad = [k for k in want if k not in got
+                   or not same_bits(got[k], want[k])]
+            if list(got) != list(want) or bad or not all(
+                    v.device.type == "cpu" for v in got.values()):
+                raise AssertionError(f"tree path {name}, {label}: the card "
+                                     f"differs from the CPU at "
+                                     f"{bad or list(got)}")
+            if tree_average.casts:
+                raise AssertionError(f"tree path {name}, {label}: card "
+                                     f"leaves cast {dict(tree_average.casts)}")
+            if label == "float32":
+                outs.append(got)
     return outs
 
 
-def shard_cohort(dev, gen):
-    """The DeepSeek-V2-Lite shard's 153 leaves (the zoo's layout) for
-    N_CLIENTS clients, as views of one (clients, 535,060,992) normal draw
-    on the card, under SelectivePolicy(rate=0.1), the benchmark cell's."""
-    built = zoo.build("deepseek_v2_lite_shard", device="meta")
+def shard_cohort(dev, gen, name: str = "deepseek_v2_lite_shard",
+                 dtype: torch.dtype = torch.float32):
+    """A zoo stage's leaves (by default the DeepSeek-V2-Lite shard's 153)
+    for N_CLIENTS clients, as views of one (clients, parameters) normal
+    draw on the card in `dtype`, under SelectivePolicy(rate=0.1), the
+    benchmark cells'."""
+    built = zoo.build(name, device="meta")
     sizes = [v.numel() for v in built.params.values()]
     x = torch.randn((N_CLIENTS, sum(sizes)), generator=gen, device=dev)
+    x = x.to(dtype)
     offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
     leaves = [[row[o:o + n] for o, n in zip(offs, sizes)] for row in x]
     return tree_average.Cohort(tree_average.leaf_plan(
@@ -1184,41 +1204,50 @@ def shard_cohort(dev, gen):
 
 def record_tree(recs, dev, gen, reps: int = 5) -> None:
     """The tree kernel's three entries against their plain versions at the
-    shard's layout: each input byte read once, each output byte written
-    once (the average: K + 1 float32 a plain position; gather and scatter:
-    2 a gathered or scattered value)."""
-    c = shard_cohort(dev, gen)
-    P, E = int(c.plan.plain[-1]), int(c.plan.enc[-1])
-    K = len(c.leaves)
-    outs = [torch.zeros(int(c.plan.out[-1]), device=dev) for _ in range(4)]
-    tree_average.average(c, outs[0])
-    tree_average.average_plain(c, outs[1])
-    _record(recs, "tree_average", outs[0], outs[1],
-            lambda: tree_average.average(c, outs[0]),
-            lambda: tree_average.average_plain(c, outs[1]), reps,
-            (0, 4 * (K + 1) * P), shape=[K, P])
-    enc = tree_average.gather(c)
-    _record(recs, "tree_gather", enc, tree_average.gather_plain(c),
-            lambda: tree_average.gather(c),
-            lambda: tree_average.gather_plain(c), reps, (0, 2 * 4 * K * E))
-    dec = enc[0]
-    tree_average.scatter(c, dec, outs[2])
-    tree_average.scatter_plain(c, dec, outs[3])
-    _record(recs, "tree_scatter", outs[2], outs[3],
-            lambda: tree_average.scatter(c, dec, outs[2]),
-            lambda: tree_average.scatter_plain(c, dec, outs[3]), reps,
-            (0, 2 * 4 * E), shape=[E])
+    DeepSeek shard's layout in float32 and at the Kimi-Linear stage's in
+    bfloat16 (the cells' trees): each input byte read once, each output
+    byte written once (the average: K leaf values and a float32 output a
+    plain position; the gather: K leaf values and K float32 a gathered
+    position; the scatter: 2 float32 a position)."""
+    for name, dtype in (("deepseek_v2_lite_shard", torch.float32),
+                        ("kimi_linear_shard", torch.bfloat16)):
+        c = shard_cohort(dev, gen, name, dtype)
+        P, E = int(c.plan.plain[-1]), int(c.plan.enc[-1])
+        K, b = len(c.leaves), c.leaves[0][0].element_size()
+        outs = [torch.zeros(int(c.plan.out[-1]), device=dev)
+                for _ in range(4)]
+        tree_average.average(c, outs[0])
+        tree_average.average_plain(c, outs[1])
+        _record(recs, "tree_average", outs[0], outs[1],
+                lambda: tree_average.average(c, outs[0]),
+                lambda: tree_average.average_plain(c, outs[1]), reps,
+                (0, (b * K + 4) * P), shape=[K, P], dtype=str(dtype))
+        enc = tree_average.gather(c)
+        _record(recs, "tree_gather", enc, tree_average.gather_plain(c),
+                lambda: tree_average.gather(c),
+                lambda: tree_average.gather_plain(c), reps,
+                (0, (b + 4) * K * E), dtype=str(dtype))
+        dec = enc[0]
+        tree_average.scatter(c, dec, outs[2])
+        tree_average.scatter_plain(c, dec, outs[3])
+        _record(recs, "tree_scatter", outs[2], outs[3],
+                lambda: tree_average.scatter(c, dec, outs[2]),
+                lambda: tree_average.scatter_plain(c, dec, outs[3]), reps,
+                (0, 2 * 4 * E), shape=[E], dtype=str(dtype))
+        del c, outs, enc, dec
+        torch.cuda.empty_cache()
 
 
 def tree_path(dev, gpu: str, cryptodir: pathlib.Path, state_dicts,
               gen) -> tuple[dict, list]:
     """fhe_fedavg on the card against the same flow on the CPU (POLICIES
-    over the CNN's state_dicts), then the kernel records at the shard's
-    layout."""
+    over the CNN's state_dicts, in float32 and in bfloat16), then the
+    kernel records at the stages' layouts."""
     hs = tree_helpers(cryptodir, dev)
     _, counts = drive("tree", lambda: run_tree_path(hs, state_dicts, dev))
     print(f"tree path: card == CPU bit for bit under "
-          f"{sorted(POLICIES)} launches {counts}", flush=True)
+          f"{sorted(POLICIES)}, float32 and bfloat16 (card casts "
+          f"{dict(tree_average.casts)}) launches {counts}", flush=True)
     recs: list = []
     record_tree(recs, dev, gen)
     print_records(recs, gpu)

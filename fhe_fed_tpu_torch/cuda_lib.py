@@ -66,10 +66,10 @@ _SIGNATURES = {
     "fhe_philox_rbg": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P),
     # out, key, nkeys, num, stream
     "fhe_threefry_split": (_P, _P, _L, _L, _P),
-    # enc, table(device), leaves, clients, count, stream
-    "fhe_tree_gather": (_P, _P, _I, _I, _L, _P),
-    # out, table(device), leaves, clients, count, stream
-    "fhe_tree_average": (_P, _P, _I, _I, _L, _P),
+    # enc, table(device), leaves, clients, count, mode, stream
+    "fhe_tree_gather": (_P, _P, _I, _I, _L, _I, _P),
+    # out, table(device), leaves, clients, count, mode, stream
+    "fhe_tree_average": (_P, _P, _I, _I, _L, _I, _P),
     # out, dec, table(device), leaves, clients, count, stream
     "fhe_tree_scatter": (_P, _P, _P, _I, _I, _L, _P),
     # out, values, error(device or null), table(device), moduli(host),

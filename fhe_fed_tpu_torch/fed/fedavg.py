@@ -21,12 +21,14 @@ dicts where training left them) and on the CPU otherwise (numpy arrays,
 JAX arrays, scalars, devices mixed): tree_average gathers the encrypted
 prefixes into one (K, E) buffer and averages the plain remainder in
 float64 into one float32 output in layout order, reading the leaves in
-place; the K encrypted vectors go to the host for the scheme's calls, and
-their decrypted average is scattered into the same output, whose leaves
-come back as float32 CPU views of one buffer in the input's containers.
-On the card the entries launch the kernel csrc/tree_average.cu, on the
-CPU they run their plain versions; either gives the JAX package's result
-bit for bit.
+place (contiguous float32 leaves, and on the card contiguous bfloat16
+ones, as they lie; any other leaf is first copied to float32, counted in
+`tree_average.casts`); the K encrypted vectors go to the host for the
+scheme's calls, and their decrypted average is scattered into the same
+output, whose leaves come back as float32 CPU views of one buffer in the
+input's containers. On the card the entries launch the kernel
+csrc/tree_average.cu, on the CPU they run their plain versions; either
+gives the JAX package's result bit for bit.
 
 Each stage of `fhe_fedavg` is a span (utils/spans.py): `fhe.tree_flatten`
 (the leaves, their plan and the cohort's table), `fhe.tree_split` (the
@@ -225,13 +227,10 @@ def fhe_fedavg(scheme, client_params: list, weights: list[float],
         devices = {x.device for lv in leaves for x in lv}
         dev = devices.pop() if len(devices) == 1 else torch.device("cpu")
         shapes = [tuple(x.shape) for x in leaves[0]]
-        # Rounds as numpy's astype(np.float32) does (float16, bfloat16 and
-        # small integers exactly).
         cohort = tree_average.Cohort(
             tree_average.leaf_plan([x.numel() for x in leaves[0]], paths,
                                    policy),
-            [[x.detach().to(dev, torch.float32).contiguous() for x in lv]
-             for lv in leaves], weights)
+            _cohort_leaves(leaves, dev), weights)
         out = cohort.empty_output()
     plan = cohort.plan
     if plan.enc[-1]:
@@ -272,6 +271,30 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     if not t.is_cuda:
         return t
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def _cohort_leaves(leaves: list, dev: torch.device) -> list:
+    """The clients' leaves as a Cohort reads them on `dev`: leaf i as it
+    lies where every client's is contiguous on `dev` and of one dtype the
+    cohort reads there (float32; on the card bfloat16 too); else each
+    client's copied to contiguous float32 on `dev` (a float32 leaf already
+    so stays), rounded as numpy's astype(np.float32) rounds (float16,
+    bfloat16 and small integers exactly), one count a copy in
+    `tree_average.casts`."""
+    keep = tree_average.DTYPES if dev.type == "cuda" else (torch.float32,)
+    out = [[] for _ in leaves]
+    for column in zip(*leaves):
+        dtype = column[0].dtype
+        as_is = dtype in keep and all(
+            x.dtype == dtype and x.device == dev and x.is_contiguous()
+            for x in column)
+        for lv, x in zip(out, column):
+            if not as_is and not (x.dtype == torch.float32
+                                  and x.device == dev and x.is_contiguous()):
+                tree_average.casts[str(x.dtype).removeprefix("torch.")] += 1
+                x = x.to(dev, torch.float32).contiguous()
+            lv.append(x.detach())
+    return out
 
 
 def _tensor(x) -> torch.Tensor:

@@ -13,15 +13,20 @@ clients' leaves:
 - `scatter`: the (E,) decrypted average in the encrypted positions of the
   same output (merge_by_policy's result, once both ran).
 
-A cohort of CUDA leaves launches the kernel, one launch an entry, counted
-in `cuda_lib.launches` as `tree_gather`, `tree_average` and
-`tree_scatter`; a cohort of CPU leaves runs the plain versions here, which
-the tests hold to the JAX package and chip_smoke.py holds the kernel to on
-the card. The leaves are read in place: no flattened copy of a client.
+A leaf is float32 or bfloat16 (the same in every client), read as it
+lies and widened exactly; the outputs are float32. A cohort of CUDA leaves
+launches the kernel, one launch an entry, counted in `cuda_lib.launches`
+as `tree_gather`, `tree_average` and `tree_scatter`; a cohort of CPU
+leaves runs the plain versions here, which the tests hold to the JAX
+package and chip_smoke.py holds the kernel to on the card. The leaves are
+read in place: no flattened copy of a client. `casts` counts, by the
+source dtype, the leaves fhe_fedavg copied to float32 first because a
+cohort could not read them as they were.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -30,6 +35,13 @@ import torch
 from .. import cuda_lib
 
 NAMES = ("tree_gather", "tree_average", "tree_scatter")
+
+# Leaves copied to float32 before a cohort read them, by source dtype
+# ("float16", "bfloat16", ...): fed/fedavg.py adds one a leaf and client.
+casts: collections.Counter = collections.Counter()
+
+# The leaf dtypes a cohort reads, by the kernel's dtype code.
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _offsets(counts: np.ndarray) -> np.ndarray:
@@ -69,8 +81,10 @@ def leaf_plan(sizes, paths, policy) -> LeafPlan:
 
 class Cohort:
     """K clients' leaves under one plan, with their weights: contiguous
-    float32 tensors, every one on one device, leaf i of every client of
-    plan.sizes[i] values. On the card it holds the kernel's table."""
+    float32 or bfloat16 tensors, every one on one device, leaf i of every
+    client of plan.sizes[i] values and of one dtype. On the card it holds
+    the kernel's table and the launch's mode (0: every leaf float32, 1:
+    every leaf bfloat16, 2: mixed)."""
 
     def __init__(self, plan: LeafPlan, leaves: list, weights):
         self.plan, self.leaves = plan, leaves
@@ -80,14 +94,18 @@ class Cohort:
         if not plan.sizes.size:
             raise ValueError("a cohort's trees hold a leaf at least")
         self.device = leaves[0][0].device
+        self.codes = [DTYPES.index(x.dtype) if x.dtype in DTYPES else -1
+                      for x in leaves[0]]
         for lv in leaves:
             if [x.numel() for x in lv] != plan.sizes.tolist():
                 raise ValueError("the clients' trees differ in their leaves")
-            for x in lv:
-                if (x.dtype != torch.float32 or not x.is_contiguous()
-                        or x.device != self.device):
+            for x, code in zip(lv, self.codes):
+                if (code < 0 or x.dtype != DTYPES[code]
+                        or not x.is_contiguous() or x.device != self.device):
                     raise ValueError("a cohort's leaves are contiguous "
-                                     "float32 on one device")
+                                     "float32 or bfloat16 on one device, "
+                                     "each leaf of one dtype")
+        self.mode = self.codes[0] if len(set(self.codes)) == 1 else 2
         self.table = self._table() if self.device.type == "cuda" else None
 
     def _table(self) -> torch.Tensor:
@@ -96,16 +114,19 @@ class Cohort:
                         dtype=np.int64)
         w = np.array(self.weights, dtype=np.float64).view(np.int64)
         host = np.concatenate([p.enc, p.plain, p.k, p.out[:-1],
+                               np.array(self.codes, dtype=np.int64),
                                ptrs.reshape(-1), w])
         return torch.from_numpy(host).to(self.device)
 
-    def _launch(self, name: str, out: torch.Tensor, count, *args) -> None:
+    def _launch(self, name: str, out: torch.Tensor, count, *args,
+                mode=()) -> None:
         """One launch of entry `name` over `count` positions (`args`: the
-        pointers between `out` and the table)."""
+        pointers between `out` and the table; `mode`: (self.mode,) for the
+        entries that read the leaves)."""
         cuda_lib.require_cuda(out, name, torch.float32)
         err = getattr(cuda_lib.lib(), f"fhe_{name}")(
             out.data_ptr(), *args, self.table.data_ptr(), len(self.plan.k),
-            len(self.leaves), int(count), cuda_lib.stream_ptr(out))
+            len(self.leaves), int(count), *mode, cuda_lib.stream_ptr(out))
         cuda_lib.check(err, name)
         cuda_lib.launches[name] += 1
 
@@ -122,7 +143,8 @@ def gather(cohort: Cohort) -> torch.Tensor:
     enc = torch.empty((len(cohort.leaves), int(cohort.plan.enc[-1])),
                       dtype=torch.float32, device=cohort.device)
     if enc.numel():
-        cohort._launch("tree_gather", enc, cohort.plan.enc[-1])
+        cohort._launch("tree_gather", enc, cohort.plan.enc[-1],
+                       mode=(cohort.mode,))
     return enc
 
 
@@ -133,7 +155,8 @@ def average(cohort: Cohort, out: torch.Tensor) -> None:
     if cohort.table is None:
         return average_plain(cohort, out)
     _check_out(cohort, out)
-    cohort._launch("tree_average", out, cohort.plan.plain[-1])
+    cohort._launch("tree_average", out, cohort.plan.plain[-1],
+                   mode=(cohort.mode,))
 
 
 def scatter(cohort: Cohort, dec: torch.Tensor, out: torch.Tensor) -> None:
@@ -169,8 +192,8 @@ def _segments(cohort: Cohort):
 
 
 def gather_plain(cohort: Cohort) -> torch.Tensor:
-    """gather in torch ops on the leaves' device."""
-    enc = [torch.cat([lv[i].reshape(-1)[:k] for i, k, _, _ in
+    """gather in torch ops on the leaves' device, widened to float32."""
+    enc = [torch.cat([lv[i].reshape(-1)[:k].float() for i, k, _, _ in
                       _segments(cohort)]) for lv in cohort.leaves]
     return torch.stack(enc)
 

@@ -21,6 +21,13 @@ layer norms, then `model.norm.weight`, `lm_head.weight`), linear weights
 (out, in): so fed.fedavg.flatten_params orders the leaves as a user's
 checkpoint does, and a SelectivePolicy's predicate sees those names.
 
+`attention`, `route` and `moe` also serve models/kimi_linear.py: with
+`rope` None the attention applies no rotary embedding (NoPE, with the
+rope part of q and k kept), and with `scoring_func` "sigmoid" the router
+is DeepSeek-V3's (noaux_tc): sigmoid scores, the top-k chosen on the
+scores plus `mlp.gate.e_score_correction_bias`, weighted by the scores
+(renormalised under `norm_topk_prob`) times `routed_scaling_factor`.
+
 Expert parallelism: the configuration's `n_routed_experts` counts the
 experts held here, `first_expert` the first one's index, and
 `router_experts` (default `n_routed_experts`) the router's width. The
@@ -202,7 +209,8 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 def attention(p: dict, i: int, x: torch.Tensor, cfg: dict, rope
               ) -> torch.Tensor:
-    """Multi-head latent attention of layer i; x (B, T, hidden)."""
+    """Multi-head latent attention of layer i; x (B, T, hidden). `rope`:
+    rope_tables' (cos, sin), or None for no rotary embedding (NoPE)."""
     B, T, _ = x.shape
     pre = f"model.layers.{i}.self_attn"
     heads = cfg["num_attention_heads"]
@@ -215,12 +223,13 @@ def attention(p: dict, i: int, x: torch.Tensor, cfg: dict, rope
     kv = _rms(p[f"{pre}.kv_a_layernorm.weight"], latent, cfg["rms_norm_eps"])
     kv = (kv @ p[f"{pre}.kv_b_proj.weight"].T).view(B, T, heads, nope + vdim)
     k_nope, v = kv.transpose(1, 2).split([nope, vdim], -1)
-    cos, sin = rope
-    q_pe = _rotate(q[..., nope:], cos, sin)
-    k_pe = _rotate(k_pe.view(B, 1, T, rdim), cos, sin).expand(B, heads, T,
-                                                              rdim)
-    q = torch.cat((q[..., :nope], q_pe), -1)
-    k = torch.cat((k_nope, k_pe), -1)
+    k_pe = k_pe.view(B, 1, T, rdim)
+    if rope is not None:
+        cos, sin = rope
+        q_pe = _rotate(q[..., nope:], cos, sin)
+        k_pe = _rotate(k_pe, cos, sin)
+        q = torch.cat((q[..., :nope], q_pe), -1)
+    k = torch.cat((k_nope, k_pe.expand(B, heads, T, rdim)), -1)
     out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                          scale=softmax_scale(cfg))
     out = out.transpose(1, 2).reshape(B, T, heads * vdim)
@@ -229,11 +238,20 @@ def attention(p: dict, i: int, x: torch.Tensor, cfg: dict, rope
 
 def route(p: dict, i: int, x: torch.Tensor, cfg: dict):
     """MoEGate: (weights, experts), each (tokens, num_experts_per_tok), over
-    all the router's experts; x (tokens, hidden)."""
-    scores = (x @ p[f"model.layers.{i}.mlp.gate.weight"].T).softmax(-1)
-    w, idx = torch.topk(scores, cfg["num_experts_per_tok"], dim=-1,
-                        sorted=False)
-    if cfg["norm_topk_prob"] and cfg["num_experts_per_tok"] > 1:
+    all the router's experts; x (tokens, hidden). `scoring_func` softmax:
+    the top-k of the softmax scores; sigmoid: the top-k of the sigmoid
+    scores plus the correction bias, weighted by their scores."""
+    gate = f"model.layers.{i}.mlp.gate"
+    logits = x @ p[f"{gate}.weight"].T
+    k = cfg["num_experts_per_tok"]
+    if cfg["scoring_func"] == "sigmoid":
+        scores = logits.sigmoid()
+        _, idx = torch.topk(scores + p[f"{gate}.e_score_correction_bias"],
+                            k, dim=-1, sorted=False)
+        w = scores.gather(-1, idx)
+    else:
+        w, idx = torch.topk(logits.softmax(-1), k, dim=-1, sorted=False)
+    if cfg["norm_topk_prob"] and k > 1:
         w = w / (w.sum(-1, keepdim=True) + 1e-20)
     return w * cfg["routed_scaling_factor"], idx
 

@@ -29,8 +29,11 @@ Param-count ladder (reference figs/processing.py:11-22 vs ours):
 Beyond the JAX package's ladder (PORT_NAMES, not in MODEL_NAMES):
 deepseek_v2_lite, DeepSeek-V2-Lite at its published config
 (15,706,484,224), and deepseek_v2_lite_shard, one expert-parallel chip's
-share of it (535,060,992; models/deepseek_v2.py), each an OrderedDict
-under the Hugging Face key names.
+share of it (535,060,992; models/deepseek_v2.py); kimi_linear_48b,
+Kimi-Linear-48B-A3B at its published config (49,122,681,728), and
+kimi_linear_shard, one expert-parallel stage of it (1,299,826,624;
+models/kimi_linear.py); each an OrderedDict under the Hugging Face key
+names.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from .. import cuda_lib
 from ..utils import threefry as tf
 from . import basic, convnets, deepseek_v2, transformers_zoo, graph_tabular
+from . import kimi_linear
 from .layers import param_count
 
 
@@ -107,14 +111,16 @@ _REGISTRY: dict[str, tuple[Callable, Callable, int | None]] = {
 # The JAX package's models, in its order.
 MODEL_NAMES = tuple(_REGISTRY)
 
-# Models of the port alone: name -> configuration.
-_DEEPSEEK_V2 = {"deepseek_v2_lite": deepseek_v2.LITE,
-                "deepseek_v2_lite_shard": deepseek_v2.LITE_SHARD}
-PORT_NAMES = tuple(_DEEPSEEK_V2)
-for _name, _cfg in _DEEPSEEK_V2.items():
+# Models of the port alone: name -> (module, configuration).
+_PORT = {"deepseek_v2_lite": (deepseek_v2, deepseek_v2.LITE),
+         "deepseek_v2_lite_shard": (deepseek_v2, deepseek_v2.LITE_SHARD),
+         "kimi_linear_48b": (kimi_linear, kimi_linear.KIMI_48B),
+         "kimi_linear_shard": (kimi_linear, kimi_linear.SHARD)}
+PORT_NAMES = tuple(_PORT)
+for _name, (_mod, _cfg) in _PORT.items():
     _REGISTRY[_name] = (
-        lambda key, cfg=_cfg: (deepseek_v2.init(key, cfg), None),
-        functools.partial(deepseek_v2.apply, cfg=_cfg), None)
+        lambda key, mod=_mod, cfg=_cfg: (mod.init(key, cfg), None),
+        functools.partial(_mod.apply, cfg=_cfg), None)
 
 # The 12-model figure ladder order (figs/processing.py:11-29).
 LADDER = ("linear", "tst", "mlp", "rnn_lstm", "cnn_fedavg", "mobilenet",
@@ -183,6 +189,6 @@ def example_inputs(name: str, seed: int = 0) -> tuple[np.ndarray, ...]:
     if name == "tabnet":
         return (img(8, 54),)
     if name in PORT_NAMES:
-        return (rng.integers(0, _DEEPSEEK_V2[name]["vocab_size"], (1, 16)),)
+        return (rng.integers(0, _PORT[name][1]["vocab_size"], (1, 16)),)
     raise KeyError(f"unknown model {name!r}; have "
                    f"{MODEL_NAMES + PORT_NAMES}")

@@ -1209,7 +1209,9 @@ def test_tree_chip_smoke_path_small(dev, tree_dir):
         chip_smoke.tree_helpers(tree_dir, dev), chip_smoke.cnn_state_dicts(),
         dev))
     assert len(outs) == len(chip_smoke.POLICIES)
-    assert counts["tree_average"] == 2 and counts["tree_gather"] == 3
+    # Each policy twice on the card: float32, then bfloat16 read in place.
+    assert counts["tree_average"] == 4 and counts["tree_gather"] == 6
+    assert not TA.casts
 
 
 class _Counting:
@@ -1256,6 +1258,100 @@ def test_tree_card_path_at_the_deepseek_shard(dev, tree_dir):
         flat = leaf.reshape(-1)
         assert chip_smoke.same_bits(flat[kk:], want[o + kk:o + n]), k
         assert float((flat[:kk] - want[o:o + kk]).abs().max()) <= 1e-6, k
+
+
+def _contiguous_trees(dev, dtypes):
+    """_card_trees made contiguous, leaf i in dtypes[i % len(dtypes)]."""
+    return [collections.OrderedDict(
+        (k, v.contiguous().to(dtypes[i % len(dtypes)]))
+        for i, (k, v) in enumerate(t.items())) for t in _card_trees(dev)]
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "mixed"])
+def test_tree_kernel_reads_each_dtype_as_its_plain_version(dev, kind):
+    """The three entries over a card cohort of float32, bfloat16, or
+    bfloat16 and float32 leaves in turn (modes 0, 1, 2; a leaf of 70,000
+    values spans tiles) equal their plain versions bit for bit, and the
+    bfloat16 cohort's results equal those of its leaves cast to float32."""
+    dtypes = {"float32": (torch.float32,), "bfloat16": (torch.bfloat16,),
+              "mixed": (torch.bfloat16, torch.float32)}[kind]
+    trees = _contiguous_trees(dev, dtypes)
+    big = torch.randn(3, 70000, generator=_gen(dev, 9), device=dev)
+    for t, row in zip(trees, big):
+        t["e.weight"] = row.to(dtypes[0])
+    plan = TA.leaf_plan([v.numel() for v in trees[0].values()],
+                        list(trees[0]), SelectivePolicy(rate=0.3))
+    c = TA.Cohort(plan, [list(t.values()) for t in trees],
+                  chip_smoke.API_WEIGHTS)
+    cast = TA.Cohort(plan, [[x.float() for x in t.values()] for t in trees],
+                     chip_smoke.API_WEIGHTS)
+    assert (c.mode, cast.mode) == ({"float32": 0, "bfloat16": 1,
+                                    "mixed": 2}[kind], 0)
+    dec = torch.randn(int(plan.enc[-1]), generator=_gen(dev, 10),
+                      device=dev)
+    enc = TA.gather(c)
+    outs = [c.empty_output() for _ in range(3)]
+    TA.average(c, outs[0])
+    TA.scatter(c, dec, outs[0])
+    TA.average_plain(c, outs[1])
+    TA.scatter_plain(c, dec, outs[1])
+    TA.average(cast, outs[2])
+    TA.scatter(cast, dec, outs[2])
+    for a, b in ((enc, TA.gather_plain(c)), (enc, TA.gather(cast)),
+                 (outs[0], outs[1]), (outs[0], outs[2])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "mixed"])
+def test_tree_card_path_reads_bfloat16_in_place(dev, tree_dir, kind):
+    """fhe_fedavg over card trees of bfloat16 leaves, or of bfloat16 and
+    float32 leaves in turn: no leaf cast (`tree_average.casts` stays
+    empty), one launch of each entry, and the tree bit for bit the same
+    flow's over the leaves cast to float32 on the card, two helpers of one
+    seed."""
+    dtypes = ((torch.bfloat16,) if kind == "bfloat16"
+              else (torch.bfloat16, torch.float32))
+    trees = _contiguous_trees(dev, dtypes)
+    cast = [collections.OrderedDict((k, v.float()) for k, v in t.items())
+            for t in trees]
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = SelectivePolicy(rate=0.3)
+    want = fhe_fedavg(hs[0], cast, chip_smoke.API_WEIGHTS, pol)
+    TA.casts.clear()
+    cuda_lib.launches.clear()
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol)
+    assert not TA.casts
+    assert {n: cuda_lib.launches[n] for n in TA.NAMES} == dict.fromkeys(
+        TA.NAMES, 1)
+    assert list(got) == list(want)
+    for k in got:
+        assert chip_smoke.same_bits(got[k], want[k]), k
+
+
+def test_tree_card_path_casts_only_what_it_cannot_read(dev, tree_dir):
+    """A float32 card tree casts nothing; a float16 leaf, a transposed one
+    and a leaf bfloat16 in one client alone are copied to float32, one
+    count a leaf and client, and the tree equals the same flow's over
+    those leaves cast by hand."""
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = SelectivePolicy(rate=0.3)
+    trees = _contiguous_trees(dev, (torch.float32,))
+    TA.casts.clear()
+    for h in hs:        # both helpers, so that their draws stay in step
+        fhe_fedavg(h, trees, chip_smoke.API_WEIGHTS, pol)
+    assert not TA.casts
+    for t in trees:
+        t["a.weight"] = t["a.weight"].half()
+        t["d.weight"] = t["d.weight"].t()
+    trees[0]["d.bias"] = trees[0]["d.bias"].bfloat16()
+    cast = [collections.OrderedDict((k, v.float().contiguous())
+                                    for k, v in t.items()) for t in trees]
+    want = fhe_fedavg(hs[0], cast, chip_smoke.API_WEIGHTS, pol)
+    TA.casts.clear()
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol)
+    assert dict(TA.casts) == {"float16": 3, "float32": 3, "bfloat16": 1}
+    for k in got:
+        assert chip_smoke.same_bits(got[k], want[k]), k
 
 
 # The passes of csrc/rlwe_passes.cu at the paths' shapes: (case, leading

@@ -2,10 +2,13 @@
 (fed/tree_average.py `leaf_plan`) against split_by_policy's plan and
 segment offsets, on the CNN's state dict and on the DeepSeek-V2-Lite
 shard's 153 leaves; the plain versions of the kernel's three entries
-against the numpy split, average and merge, bit for bit; and fhe_fedavg
-over CPU tensors, numpy arrays, mixed trees, bfloat16, float64 and int64
-leaves, which runs those plain entries without touching the kernel's
-wrappers and gives the JAX package's tree bit for bit. The kernel itself
+against the numpy split, average and merge, bit for bit; cohorts of
+bfloat16 leaves, and of bfloat16 and float32 leaves, against the same
+leaves cast to float32, bit for bit; fhe_fedavg over CPU tensors, numpy
+arrays, mixed trees, bfloat16, float64 and int64 leaves, which runs those
+plain entries without touching the kernel's wrappers and gives the JAX
+package's tree bit for bit; and the leaves it copies to float32 first,
+counted in `tree_average.casts`. The kernel itself
 is held to these plain versions and to the same flow on the CPU on the
 card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -137,6 +140,58 @@ def test_cohort_refuses_trees_that_differ():
                         F.FULL)
     with pytest.raises(ValueError, match="differ"):
         TA.Cohort(plan, leaves, WEIGHTS)
+
+
+def _as(trees, dtypes):
+    """`trees` with leaf i cast to dtypes[i % len(dtypes)]."""
+    return [collections.OrderedDict(
+        (k, v.to(dtypes[i % len(dtypes)])) for i, (k, v) in
+        enumerate(t.items())) for t in trees]
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "mixed"])
+@pytest.mark.parametrize("name", list(POLICIES))
+def test_plain_entries_read_bfloat16_as_its_float32_cast(kind, name):
+    """A cohort of bfloat16 leaves, or of bfloat16 and float32 leaves in
+    turn, gathers, averages and scatters bit for bit what the cohort of
+    the same leaves cast to float32 does; its mode is 1 (every leaf
+    bfloat16) or 2 (mixed), a float32 cohort's 0."""
+    dtypes = ((torch.bfloat16,) if kind == "bfloat16"
+              else (torch.bfloat16, torch.float32))
+    trees = _as(_trees(), dtypes)
+    policy = POLICIES[name]
+    plan = TA.leaf_plan([v.numel() for v in trees[0].values()],
+                        list(trees[0]), policy)
+    cohorts = [TA.Cohort(plan, [[x.float() if cast else x for x in
+                                 t.values()] for t in trees], WEIGHTS)
+               for cast in (False, True)]
+    assert [c.mode for c in cohorts] == [1 if kind == "bfloat16" else 2, 0]
+    dec = torch.randn(int(plan.enc[-1]),
+                      generator=torch.Generator().manual_seed(2))
+    outs = []
+    for c in cohorts:
+        enc = TA.gather(c)
+        assert enc.dtype == torch.float32
+        out = c.empty_output()
+        TA.average(c, out)
+        TA.scatter(c, dec, out)
+        outs.append((enc, out))
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_cohort_refuses_other_dtypes_and_a_dtype_that_differs():
+    """A cohort reads float32 and bfloat16 leaves alone, and leaf i of one
+    dtype in every client."""
+    trees = _trees()
+    plan = TA.leaf_plan([v.numel() for v in trees[0].values()],
+                        list(trees[0]), F.FULL)
+    for dtypes in ([(torch.float16,)] * 3,
+                   [(torch.bfloat16,), (torch.float32,), (torch.float32,)]):
+        leaves = [list(_as([t], d)[0].values())
+                  for t, d in zip(trees, dtypes)]
+        with pytest.raises(ValueError, match="bfloat16"):
+            TA.Cohort(plan, leaves, WEIGHTS)
 
 
 @pytest.fixture(scope="module")
@@ -284,3 +339,32 @@ def test_one_flow_on_int64_and_float64_leaves(kind, use_bytes, helpers,
                                                  rate=0.5), use_bytes)
     assert dict(plain_entries) == dict.fromkeys(
         ("gather_plain", "average_plain", "scatter_plain"), 1)
+
+
+@pytest.mark.parametrize("kind,casts", [
+    ("float32", {}),
+    ("bfloat16", {"bfloat16": 18}),
+    ("float16_leaf", {"float16": 3}),
+    ("transposed_leaf", {"float32": 3}),
+    ("dtype_differs", {"bfloat16": 6}),
+])
+def test_casts_count_the_leaves_copied_to_float32(kind, casts, helpers,
+                                                   plain_entries):
+    """On the CPU a cohort reads contiguous float32 leaves as they lie and
+    every other leaf through a float32 copy, one count a leaf and client
+    in `tree_average.casts` by its dtype (6 leaves, 3 clients); the tree
+    is the JAX package's either way."""
+    trees = _trees()
+    if kind == "bfloat16":
+        trees = _as(trees, (torch.bfloat16,))
+    elif kind == "float16_leaf":
+        for t in trees:
+            t["layer4.bias"] = t["layer4.bias"].half()
+    elif kind == "transposed_leaf":
+        for t in trees:
+            t["layer5.weight"] = t["layer5.weight"].t()
+    elif kind == "dtype_differs":
+        trees[:2] = _as(trees[:2], (torch.bfloat16, torch.float32))
+    TA.casts.clear()
+    _check_jax(helpers, trees, T.SelectivePolicy(rate=0.5))
+    assert dict(TA.casts) == casts
