@@ -57,7 +57,9 @@ Phases (each raises on failure, so the script exits non-zero):
      on the card, csrc/tree_average.cu) equal bit for bit to the same
      flow's trees over the CPU state_dicts under a second helper of the
      same seed, and so in bfloat16 (the card reads the leaves in place,
-     no leaf in tree_average.casts; the CPU casts them to float32 first),
+     no leaf in tree_average.casts; the CPU casts them to float32 first;
+     the card's round packs the gathered buffer on the card, one
+     "device" a round in fed/api.py's `staging`),
      and the kernel's three entries bit-exact against their plain
      versions at the DeepSeek-V2-Lite shard's layout in float32 (153
      leaves, rate 0.1: 3 x 53,506,181 values gathered and scattered, 3 x
@@ -264,7 +266,7 @@ from fhe_fed_tpu_torch.benchmarks import mkhe_bench, masking_bench
 from fhe_fed_tpu_torch.benchmarks import param_sweep, train_synth
 from fhe_fed_tpu_torch.benchmarks import microprof
 from fhe_fed_tpu_torch.data.synth import make_synth_images
-from fhe_fed_tpu_torch.fed import masking as M, tree_average
+from fhe_fed_tpu_torch.fed import api as fed_api, masking as M, tree_average
 from fhe_fed_tpu_torch.fed.fedavg import tree_leaves, tree_map
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 from fhe_fed_tpu_torch.models import zoo
@@ -1156,7 +1158,8 @@ def run_tree_path(hs: list, state_dicts, dev) -> list:
     then over bfloat16 copies of the state_dicts: on the card, read in
     place (no leaf in `tree_average.casts`), and on the CPU, where each
     leaf is cast to float32 first. Raise unless the trees are equal bit
-    for bit. Returns the card's float32 trees."""
+    for bit and each card round packed its gathered buffer on the card
+    (`staging` {"device": 1}). Returns the card's float32 trees."""
     bf16 = [collections.OrderedDict((k, v.bfloat16()) for k, v in
                                     sd.items()) for sd in state_dicts]
     card = [collections.OrderedDict((k, v.to(dev)) for k, v in sd.items())
@@ -1169,6 +1172,7 @@ def run_tree_path(hs: list, state_dicts, dev) -> list:
                                  ("bfloat16", bf16, card16)):
             want = fhe_fedavg(hs[0], cpu, API_WEIGHTS, policy)
             tree_average.casts.clear()
+            fed_api.staging.clear()
             got = fhe_fedavg(hs[1], cuda, API_WEIGHTS, policy)
             bad = [k for k in want if k not in got
                    or not same_bits(got[k], want[k])]
@@ -1180,6 +1184,10 @@ def run_tree_path(hs: list, state_dicts, dev) -> list:
             if tree_average.casts:
                 raise AssertionError(f"tree path {name}, {label}: card "
                                      f"leaves cast {dict(tree_average.casts)}")
+            if fed_api.staging != {"device": 1}:
+                raise AssertionError(f"tree path {name}, {label}: staging "
+                                     f"{dict(fed_api.staging)}, want the "
+                                     f"gathered buffer packed on the card")
             if label == "float32":
                 outs.append(got)
     return outs

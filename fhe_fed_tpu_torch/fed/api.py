@@ -33,10 +33,17 @@ threefry whatever the session key, so any server expands it.
 Chunking follows the reference: ceil(size / capacity) chunks, the decrypt
 tail rule, `dense_pack` packing the full ring per chunk, `packing="slots"`
 the canonical embedding (N/2 slots per chunk, host-side encode/decode).
+
+`fedavg_round` stages by what it is given: host vectors are packed on the
+host, sent up, and their average comes back as a float64 ndarray; a
+(K, E) tensor (fhe_fedavg's gathered buffer) is packed on the helper's
+device where it lies, and its average stays there as an (E,) float32
+tensor. `staging` counts the rounds by where their pack ran.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import secrets
@@ -58,9 +65,26 @@ _CTX_FILE = "cryptocontext.txt"
 _PK_FILE = "key-public.txt"
 _SK_FILE = "key-private.txt"
 
+# fedavg_round's rounds by where their pack ran: "device" for a (K, E)
+# tensor packed on the helper's device, "host" for host vectors.
+staging: collections.Counter = collections.Counter()
+
+
+def _slicing(chunks: int, max_chunks: int | None) -> tuple[int, int]:
+    """fedavg_round's (padded chunks, slice length): one slice of every
+    chunk, or slices of max_chunks over the chunk axis padded to a
+    multiple of it."""
+    if max_chunks is None or chunks <= max_chunks:
+        return chunks, chunks
+    return -(-chunks // max_chunks) * max_chunks, max_chunks
+
 
 @register_scheme("ckks")
 class CKKS(Scheme):
+    # fedavg_round takes a (K, E) tensor and returns its average on the
+    # helper's device (fed/fedavg.py hands over its gathered buffer).
+    fedavg_round_takes_tensor = True
+
     def __init__(self, scheme: str = "ckks", batchSize: int = 4096,
                  scaleFactorBits: int = 52,
                  cryptodir: str = "../resources/cryptoparams/",
@@ -343,11 +367,37 @@ class CKKS(Scheme):
         agg = self.aggregate_cohort(ct, scaling_factors)
         return self.decrypt_cohort(agg, raw=True)
 
+    def _pack_tensor(self, x: torch.Tensor, chunks: int) -> torch.Tensor:
+        """(K, E) values -> (K, chunks, N) f32 on the helper's device, as
+        _pack_cohort packs them: each row's payload in the first `capacity`
+        positions of its chunks, zeros elsewhere (`chunks` may exceed
+        ceil(E / capacity): the padding to whole slices)."""
+        x = x.to(self.device, torch.float32)
+        k, size = x.shape
+        n, cap = self._params.ring_dim, self.capacity
+        buf = torch.zeros((k, chunks, n), dtype=torch.float32,
+                          device=self.device)
+        if cap == n:
+            buf.view(k, -1)[:, :size] = x
+            return buf
+        full, tail = divmod(size, cap)
+        buf[:, :full, :cap] = x[:, :full * cap].reshape(k, full, cap)
+        if tail:
+            buf[:, full, :tail] = x[:, full * cap:]
+        return buf
+
     def fedavg_round(self, client_vectors, scaling_factors,
                      data_dimensions: int | None = None,
                      max_chunks: int | None = 1024,
-                     fused: bool = True) -> np.ndarray:
+                     fused: bool = True):
         """One full secure-FedAvg round on the device.
+
+        client_vectors: K host vectors (or a pack_cohort() tensor), whose
+        average comes back as a float64 ndarray; or a (K, E) tensor, packed
+        on the helper's device where it lies, whose average comes back as
+        an (E,) float32 tensor on that device (the same values: the host
+        path's widening to float64 is exact). data_dimensions defaults to
+        a vector's size.
 
         max_chunks bounds device memory for large models: the chunk axis
         is padded to a multiple of max_chunks and streamed slice by slice
@@ -356,6 +406,11 @@ class CKKS(Scheme):
             raise ValueError(
                 "fedavg_round is coefficient-packed; slot packing serves "
                 "the reference-parity bytes surface")
+        if torch.is_tensor(client_vectors) and client_vectors.dim() == 2:
+            return self._fedavg_round_tensor(client_vectors, scaling_factors,
+                                             data_dimensions, max_chunks,
+                                             fused)
+        staging["host"] += 1
         with span("fhe.pack"):
             packed = (client_vectors if self._is_packed(client_vectors)
                       else self._pack_cohort(client_vectors))
@@ -363,19 +418,44 @@ class CKKS(Scheme):
                     else packed[0].numel() if packed is client_vectors
                     else int(np.asarray(client_vectors[0]).size))
             chunks = packed.shape[1]
-            one = max_chunks is None or chunks <= max_chunks
-            pad = 0 if one else (-chunks) % max_chunks
-            if pad:
+            padded, step = _slicing(chunks, max_chunks)
+            if padded > chunks:
                 packed = torch.cat([packed, packed.new_zeros(
-                    (packed.shape[0], pad, packed.shape[2]))], dim=1)
-        if one:
+                    (packed.shape[0], padded - chunks, packed.shape[2]))],
+                    dim=1)
+        if padded == step:
             with span("fhe.slice"):
                 out = self._round_slice(packed, scaling_factors, fused)
             return self._unpack(out, dims)
         outs = []
-        for s in range(0, chunks + pad, max_chunks):
+        for s in range(0, padded, step):
             with span("fhe.slice"):
-                outs.append(self._round_slice(packed[:, s:s + max_chunks],
+                outs.append(self._round_slice(packed[:, s:s + step],
                                               scaling_factors, fused).cpu())
         with span("fhe.unpack"):
             return self._unpack(torch.cat(outs), dims)
+
+    def _fedavg_round_tensor(self, x: torch.Tensor, scaling_factors,
+                             data_dimensions, max_chunks, fused):
+        """fedavg_round of a (K, E) tensor, packed, streamed and unpacked
+        on the helper's device: the host path's slices and key draws, with
+        no copy to the host."""
+        staging["device"] += 1
+        with span("fhe.pack"):
+            dims = (int(data_dimensions) if data_dimensions is not None
+                    else x.shape[1])
+            padded, step = _slicing(max(1, -(-x.shape[1] // self.capacity)),
+                                    max_chunks)
+            packed = self._pack_tensor(x, padded)
+        if padded == step:
+            with span("fhe.slice"):
+                out = self._round_slice(packed, scaling_factors, fused)
+        else:
+            out = torch.empty(packed.shape[1:], dtype=torch.float32,
+                              device=self.device)
+            for s in range(0, padded, step):
+                with span("fhe.slice"):
+                    out[s:s + step] = self._round_slice(
+                        packed[:, s:s + step], scaling_factors, fused)
+        with span("fhe.unpack"):
+            return out[:, :self.capacity].reshape(-1)[:dims]

@@ -23,18 +23,22 @@ prefixes into one (K, E) buffer and averages the plain remainder in
 float64 into one float32 output in layout order, reading the leaves in
 place (contiguous float32 leaves, and on the card contiguous bfloat16
 ones, as they lie; any other leaf is first copied to float32, counted in
-`tree_average.casts`); the K encrypted vectors go to the host for the
-scheme's calls, and their decrypted average is scattered into the same
-output, whose leaves come back as float32 CPU views of one buffer in the
-input's containers. On the card the entries launch the kernel
-csrc/tree_average.cu, on the CPU they run their plain versions; either
-gives the JAX package's result bit for bit.
+`tree_average.casts`); the (K, E) buffer goes to the scheme's
+`fedavg_round` as it lies where the scheme declares that it takes a
+tensor (`fedavg_round_takes_tensor`: the port's CKKS, which packs it on
+its device and returns the average there), else as K host vectors; the
+decrypted average is scattered into the same output, whose leaves come
+back as float32 CPU views of one buffer in the input's containers. On the
+card the entries launch the kernel csrc/tree_average.cu, on the CPU they
+run their plain versions; either gives the JAX package's result bit for
+bit.
 
 Each stage of `fhe_fedavg` is a span (utils/spans.py): `fhe.tree_flatten`
 (the leaves, their plan and the cohort's table), `fhe.tree_split` (the
-gather with its copy to the host, and the scatter), `fhe.plain_average`
-(the average), `fhe.encrypted_part` (the scheme's calls) and
-`fhe.tree_unflatten` (the output's copy to the host and its views).
+gather, with its copy to the host for a scheme that takes host vectors,
+and the scatter), `fhe.plain_average` (the average), `fhe.encrypted_part`
+(the scheme's calls) and `fhe.tree_unflatten` (the output's copy to the
+host and its views).
 `flatten_params`, `split_by_policy`, `merge_by_policy` and
 `unflatten_params` keep the JAX package's numpy API, for `plain_fedavg`
 and the benchmarks.
@@ -207,8 +211,10 @@ def fhe_fedavg(scheme, client_params: list, weights: list[float],
     client_params: one container per client, all of the same structure.
     weights: scaling factors, typically summing to 1.
     use_bytes: force the per-client bytes path (encrypt /
-        computeWeightedAverage / decrypt); by default the cohort goes
-        through scheme.fedavg_round where the scheme has one.
+        computeWeightedAverage / decrypt) on host vectors; by default the
+        cohort goes through scheme.fedavg_round where the scheme has one:
+        the gathered (K, E) buffer as it lies where the scheme declares
+        `fedavg_round_takes_tensor`, else K host vectors.
 
     Returns the aggregated container of float32 CPU tensors, views of one
     fresh host buffer (a state_dict comes back as an OrderedDict that
@@ -235,14 +241,17 @@ def fhe_fedavg(scheme, client_params: list, weights: list[float],
     plan = cohort.plan
     if plan.enc[-1]:
         with span("fhe.tree_split"):
-            encs = list(_to_host(tree_average.gather(cohort)).numpy())
+            encs = tree_average.gather(cohort)
+            if use_bytes or not getattr(scheme, "fedavg_round_takes_tensor",
+                                        False):
+                encs = list(_to_host(encs).numpy())
     if plan.plain[-1]:
         with span("fhe.plain_average"):
             tree_average.average(cohort, out)
     if plan.enc[-1]:
         enc_out = _encrypted_part(scheme, encs, weights, use_bytes)
         with span("fhe.tree_split"):
-            tree_average.scatter(cohort, torch.from_numpy(enc_out).to(
+            tree_average.scatter(cohort, torch.as_tensor(enc_out).to(
                 cohort.device), out)
     with span("fhe.tree_unflatten"):
         host = _to_host(out)
@@ -251,10 +260,13 @@ def fhe_fedavg(scheme, client_params: list, weights: list[float],
         return _unflatten(struct, iter(views))
 
 
-def _encrypted_part(scheme, encs: list, weights, use_bytes: bool):
-    """The decrypted weighted average of the K encrypted vectors, float32
-    on the host."""
+def _encrypted_part(scheme, encs, weights, use_bytes: bool):
+    """The decrypted weighted average of the K encrypted vectors, float32:
+    of a (K, E) tensor, an (E,) tensor on the scheme's device; of K host
+    vectors, an ndarray."""
     with span("fhe.encrypted_part"):
+        if torch.is_tensor(encs):
+            return scheme.fedavg_round(encs, list(weights), encs.shape[1])
         if not use_bytes and hasattr(scheme, "fedavg_round"):
             return scheme.fedavg_round(
                 encs, list(weights), encs[0].size).astype(np.float32)

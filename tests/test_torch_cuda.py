@@ -36,7 +36,7 @@ import torch
 import chip_smoke
 from fhe_fed_tpu_torch import bench, cuda_lib, CKKS
 from fhe_fed_tpu_torch import SelectivePolicy, fhe_fedavg
-from fhe_fed_tpu_torch.fed import tree_average as TA
+from fhe_fed_tpu_torch.fed import api as fed_api, tree_average as TA
 from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
@@ -1215,7 +1215,9 @@ def test_tree_chip_smoke_path_small(dev, tree_dir):
 
 
 class _Counting:
-    """A helper whose fedavg_round counts the values it is given."""
+    """A helper whose fedavg_round counts the values it is given: a tensor
+    by its numel, as fedbench/surfaces/selective.py counts it, host
+    vectors by their sizes."""
 
     def __init__(self, helper):
         self.helper, self.values = helper, 0
@@ -1224,14 +1226,28 @@ class _Counting:
         return getattr(self.helper, name)
 
     def fedavg_round(self, vectors, *args, **kwargs):
-        self.values += sum(int(np.asarray(v).size) for v in vectors)
+        self.values += (vectors.numel() if torch.is_tensor(vectors) else
+                        sum(int(np.asarray(v).size) for v in vectors))
+        return self.helper.fedavg_round(vectors, *args, **kwargs)
+
+
+class _HostRows:
+    """A scheme whose fedavg_round takes K host vectors only (it declares
+    no `fedavg_round_takes_tensor`), as the benchmark's plain reference
+    helper."""
+
+    def __init__(self, helper):
+        self.helper = helper
+
+    def fedavg_round(self, vectors, *args, **kwargs):
+        assert all(isinstance(v, np.ndarray) for v in vectors)
         return self.helper.fedavg_round(vectors, *args, **kwargs)
 
 
 def test_tree_card_path_at_the_deepseek_shard(dev, tree_dir):
     """One round at the DeepSeek-V2-Lite shard's 153-leaf layout on the
-    card, rate 0.1: the encrypting call gets 3 x 53,506,181 values, one
-    launch of each entry; the plain positions equal the plain version's
+    card, rate 0.1: the encrypting call gets 3 x 53,506,181 values as the
+    gathered buffer, packed on the card, one launch of each entry; the plain positions equal the plain version's
     f64 average bit for bit and the encrypted ones lie within 1e-6 of
     it."""
     c = chip_smoke.shard_cohort(dev, _gen(dev, 7))
@@ -1241,9 +1257,11 @@ def test_tree_card_path_at_the_deepseek_shard(dev, tree_dir):
         for lv in c.leaves]
     helper = _Counting(chip_smoke.tree_helpers(tree_dir, dev)[0])
     cuda_lib.launches.clear()
+    fed_api.staging.clear()
     got = fhe_fedavg(helper, trees, chip_smoke.API_WEIGHTS,
                      SelectivePolicy(rate=0.1))
     assert helper.values == 3 * 53_506_181
+    assert fed_api.staging == {"device": 1}
     assert {n: cuda_lib.launches[n] for n in TA.NAMES} == dict.fromkeys(
         TA.NAMES, 1)
     assert list(got) == list(built.params)
@@ -1258,6 +1276,24 @@ def test_tree_card_path_at_the_deepseek_shard(dev, tree_dir):
         flat = leaf.reshape(-1)
         assert chip_smoke.same_bits(flat[kk:], want[o + kk:o + n]), k
         assert float((flat[:kk] - want[o:o + kk]).abs().max()) <= 1e-6, k
+
+
+def test_tree_card_path_device_staging_equals_host_rows(dev, tree_dir):
+    """A bfloat16 card tree through the port's helper, whose fedavg_round
+    packs the gathered buffer on the card, and through a scheme that takes
+    host vectors only: the same tree bit for bit, two helpers of one
+    seed; `staging` counts one round on each side."""
+    trees = _contiguous_trees(dev, (torch.bfloat16,))
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = SelectivePolicy(rate=0.3)
+    fed_api.staging.clear()
+    want = fhe_fedavg(_HostRows(hs[0]), trees, chip_smoke.API_WEIGHTS, pol)
+    assert fed_api.staging == {"host": 1}
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol)
+    assert fed_api.staging == {"host": 1, "device": 1}
+    assert list(got) == list(want)
+    for k in got:
+        assert chip_smoke.same_bits(got[k], want[k]), k
 
 
 def _contiguous_trees(dev, dtypes):

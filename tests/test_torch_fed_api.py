@@ -2,8 +2,9 @@
 against fhe_fed_tpu.fed.api at batch 128 / scale 2**40 (ring 8192), as
 tests/test_fed_api.py builds it: with one seed both classes write the same
 cryptodir and the same blobs in every mode, cryptodirs and blobs cross
-both ways, the streamed round agrees fused, staged and with JAX, and the
-port refuses what the JAX class refuses."""
+both ways, the streamed round agrees fused, staged and with JAX (and a
+(K, E) tensor's round, packed where it lies, with the host vectors'), and
+the port refuses what the JAX class refuses."""
 
 import os
 
@@ -15,6 +16,7 @@ import fhe_fed_tpu as J
 import fhe_fed_tpu_torch as T
 from fhe_fed_tpu.ckks import serial as J_serial
 from fhe_fed_tpu_torch.ckks import serial as T_serial
+from fhe_fed_tpu_torch.fed import api as T_api
 
 torch.set_num_threads(1)
 
@@ -142,6 +144,39 @@ def test_fedavg_round_fused_staged_and_jax_agree(shared_dir, max_chunks):
     np.testing.assert_allclose(
         fused, sum(w * d.astype(np.float64) for w, d in zip(WEIGHTS, data)),
         atol=1e-6)
+
+
+@pytest.mark.parametrize("dense,size", [(False, 1100), (True, 20000)])
+@pytest.mark.parametrize("max_chunks", [None, 2])
+def test_fedavg_round_packs_a_tensor_where_it_lies(shared_dir, max_chunks,
+                                                   dense, size):
+    """A (K, E) tensor is packed on the helper's device into the host
+    pack's bits, zero tail and padding to whole slices included (9 chunks
+    of 128 values, or 3 dense chunks of 8192, padded to 10 or 4 in slices
+    of 2), and its round gives an (E,) float32 tensor there, bit-equal to
+    the host vectors' float64 round cast to float32 under a helper of the
+    same seed; `staging` counts one round on each side."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((3, size)).astype(np.float32))
+    rows = list(x.numpy())
+    kw = dict(symmetric=True, dense_pack=dense)
+    host, dev = (_loaded(T.CKKS, shared_dir, **kw) for _ in range(2))
+    chunks = -(-size // host.capacity)
+    padded = chunks if max_chunks is None else -(-chunks // 2) * 2
+    want = host._pack_cohort(rows)
+    want = torch.cat([want, want.new_zeros((3, padded - chunks, 8192))], 1)
+    got = dev._pack_tensor(x, padded)
+    assert got.shape == (3, padded, 8192)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    T_api.staging.clear()
+    avg64 = host.fedavg_round(rows, WEIGHTS, max_chunks=max_chunks)
+    avg = dev.fedavg_round(x, WEIGHTS, max_chunks=max_chunks)
+    assert dict(T_api.staging) == {"host": 1, "device": 1}
+    assert avg64.dtype == np.float64 and avg64.shape == (size,)
+    assert torch.is_tensor(avg) and avg.dtype == torch.float32
+    assert avg.shape == (size,) and avg.device == dev.device
+    np.testing.assert_array_equal(avg.numpy().view(np.int32),
+                                  avg64.astype(np.float32).view(np.int32))
 
 
 def test_cohort_methods_match_jax_in_public_key_mode(shared_dir):

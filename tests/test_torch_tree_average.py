@@ -7,7 +7,9 @@ bfloat16 leaves, and of bfloat16 and float32 leaves, against the same
 leaves cast to float32, bit for bit; fhe_fedavg over CPU tensors, numpy
 arrays, mixed trees, bfloat16, float64 and int64 leaves, which runs those
 plain entries without touching the kernel's wrappers and gives the JAX
-package's tree bit for bit; and the leaves it copies to float32 first,
+package's tree bit for bit (the encrypted part as the gathered tensor
+through the port's helper, as host rows through a scheme that takes only
+those); and the leaves it copies to float32 first,
 counted in `tree_average.casts`. The kernel itself
 is held to these plain versions and to the same flow on the CPU on the
 card (tests/test_torch_cuda.py, chip_smoke.py)."""
@@ -22,7 +24,7 @@ import fhe_fed_tpu as J
 import fhe_fed_tpu_torch as T
 from fhe_fed_tpu_torch import cuda_lib
 from fhe_fed_tpu_torch.fed import fedavg as F
-from fhe_fed_tpu_torch.fed import tree_average as TA
+from fhe_fed_tpu_torch.fed import api as TA_api, tree_average as TA
 from fhe_fed_tpu_torch.models import zoo
 from fhe_fed_tpu_torch.models.basic import CNNOriginalFedAvg
 
@@ -227,13 +229,15 @@ def _numpy_tree(tree):
         if torch.is_tensor(v) else (k, v) for k, v in tree.items())
 
 
-def _check_jax(helpers, trees, policy, use_bytes=False):
-    """fhe_fedavg of `trees` through the plain entries, none of the
-    kernel's wrappers reached and no launch counted, bit-equal to the JAX
-    package's over the trees as numpy; the leaves float32 CPU views of one
-    buffer."""
+def _check_jax(helpers, trees, policy, use_bytes=False, wrap=None):
+    """fhe_fedavg of `trees` through the plain entries (the port's helper
+    as `wrap` gives it, if given), none of the kernel's wrappers reached
+    and no launch counted, bit-equal to the JAX package's over the trees
+    as numpy; the leaves float32 CPU views of one buffer."""
     launches = dict(cuda_lib.launches)
-    got = T.fhe_fedavg(helpers(T.CKKS), trees, WEIGHTS, policy, use_bytes)
+    helper = helpers(T.CKKS)
+    got = T.fhe_fedavg(wrap(helper) if wrap else helper, trees, WEIGHTS,
+                       policy, use_bytes)
     assert dict(cuda_lib.launches) == launches
     want = J.fhe_fedavg(helpers(J.CKKS), [_numpy_tree(t) for t in trees],
                         WEIGHTS, _jax_policy(policy, list(trees[0])),
@@ -304,6 +308,35 @@ def test_dispatch_sends_host_trees_down_the_host_path(kind, helpers,
     _check_jax(helpers, trees, T.SelectivePolicy(rate=0.1))
     assert dict(plain_entries) == dict.fromkeys(
         ("gather_plain", "average_plain", "scatter_plain"), 1)
+
+
+class _HostRows:
+    """A scheme whose fedavg_round takes K host vectors only (it declares
+    no `fedavg_round_takes_tensor`), as the benchmark's plain reference
+    helper."""
+
+    def __init__(self, helper):
+        self.helper = helper
+
+    def fedavg_round(self, vectors, *args, **kwargs):
+        assert all(isinstance(v, np.ndarray) for v in vectors)
+        return self.helper.fedavg_round(vectors, *args, **kwargs)
+
+
+@pytest.mark.parametrize("scheme,staging", [
+    ("port", {"device": 1}),
+    ("host_rows", {"host": 1}),
+])
+def test_encrypted_part_staging_by_what_the_scheme_declares(
+        scheme, staging, helpers, plain_entries):
+    """The port's CPU helper takes the gathered (K, E) buffer as it lies
+    and packs it on its device; a scheme that declares no tensor input
+    gets host rows; either gives the JAX package's tree bit for bit."""
+    TA_api.staging.clear()
+    _check_jax(helpers, _trees(sizes=(7, 300, 0, 6, 30)),
+               T.SelectivePolicy(rate=0.5),
+               wrap=_HostRows if scheme == "host_rows" else None)
+    assert dict(TA_api.staging) == staging
 
 
 def _batchnorm_state_dicts():
