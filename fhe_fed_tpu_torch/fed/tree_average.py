@@ -21,7 +21,11 @@ leaves runs the plain versions here, which the tests hold to the JAX
 package and chip_smoke.py holds the kernel to on the card. The leaves are
 read in place: no flattened copy of a client. `casts` counts, by the
 source dtype, the leaves fhe_fedavg copied to float32 first because a
-cohort could not read them as they were.
+cohort could not read them as they were; `aliases`, by path, the leaves
+that are another leaf's memory (a tied embedding), which the cohort reads
+under each key. Offsets, counts and addresses are int64 throughout, in
+the plan, the table and the kernel: a tree may hold more than 2^31
+positions.
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ NAMES = ("tree_gather", "tree_average", "tree_scatter")
 # Leaves copied to float32 before a cohort read them, by source dtype
 # ("float16", "bfloat16", ...): fed/fedavg.py adds one a leaf and client.
 casts: collections.Counter = collections.Counter()
+
+# Leaves that are an earlier leaf's memory in the same client (a tied
+# embedding under two keys), by path: fed/fedavg.py adds one a leaf and
+# client. Each is read, and its prefix encrypted, under every key.
+aliases: collections.Counter = collections.Counter()
 
 # The leaf dtypes a cohort reads, by the kernel's dtype code.
 DTYPES = (torch.float32, torch.bfloat16)

@@ -21,6 +21,9 @@ layer norms, then `model.norm.weight`, `lm_head.weight`), linear weights
 (out, in): so fed.fedavg.flatten_params orders the leaves as a user's
 checkpoint does, and a SelectivePolicy's predicate sees those names.
 
+`route` and `moe` also serve models/granite_hybrid.py, whose router
+reads another key (`gate`) and whose experts are slices of stacked
+tensors with a fused input projection (`stacked`, `shared`).
 `attention`, `route` and `moe` also serve models/kimi_linear.py: with
 `rope` None the attention applies no rotary embedding (NoPE, with the
 rope part of q and k kept), and with `scoring_func` "sigmoid" the router
@@ -236,12 +239,14 @@ def attention(p: dict, i: int, x: torch.Tensor, cfg: dict, rope
     return out @ p[f"{pre}.o_proj.weight"].T
 
 
-def route(p: dict, i: int, x: torch.Tensor, cfg: dict):
+def route(p: dict, i: int, x: torch.Tensor, cfg: dict,
+          gate: str | None = None):
     """MoEGate: (weights, experts), each (tokens, num_experts_per_tok), over
     all the router's experts; x (tokens, hidden). `scoring_func` softmax:
     the top-k of the softmax scores; sigmoid: the top-k of the sigmoid
-    scores plus the correction bias, weighted by their scores."""
-    gate = f"model.layers.{i}.mlp.gate"
+    scores plus the correction bias, weighted by their scores. `gate`:
+    the router's key prefix (default layer i's `mlp.gate`)."""
+    gate = f"model.layers.{i}.mlp.gate" if gate is None else gate
     logits = x @ p[f"{gate}.weight"].T
     k = cfg["num_experts_per_tok"]
     if cfg["scoring_func"] == "sigmoid":
@@ -256,20 +261,40 @@ def route(p: dict, i: int, x: torch.Tensor, cfg: dict):
     return w * cfg["routed_scaling_factor"], idx
 
 
-def moe(p: dict, i: int, x: torch.Tensor, cfg: dict) -> torch.Tensor:
+def _fused_mlp(w_in: torch.Tensor, w_out: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU from a fused input projection: w_in (2 * width, hidden),
+    its first half the gate and its second the up projection; w_out
+    (hidden, width)."""
+    g, u = (x @ w_in.T).chunk(2, -1)
+    return (F.silu(g) * u) @ w_out.T
+
+
+def moe(p: dict, i: int, x: torch.Tensor, cfg: dict, gate: str | None = None,
+        stacked: tuple | None = None, shared: tuple | None = None
+        ) -> torch.Tensor:
     """The DeepSeekMoE layer i as held here: the shared experts plus the
     weighted outputs of the held experts for the tokens routed to them.
-    x (..., hidden)."""
+    x (..., hidden). By default the experts are the SwiGLUs under layer
+    i's `mlp.experts.{e}` and `mlp.shared_experts`; `stacked`, the held
+    experts' (input, output) weights (held, 2 * width, hidden) and (held,
+    hidden, width), makes expert e the fused SwiGLU of slices
+    e - first_expert, and `shared`, an (input, output) pair, the shared
+    expert the fused SwiGLU of it. `gate` is route's."""
     shape = x.shape
     x = x.reshape(-1, shape[-1])
     pre = f"model.layers.{i}.mlp"
-    w, idx = route(p, i, x, cfg)
-    out = _mlp(p, f"{pre}.shared_experts", x)
+    w, idx = route(p, i, x, cfg, gate)
+    out = (_mlp(p, f"{pre}.shared_experts", x) if shared is None
+           else _fused_mlp(*shared, x))
+    first = cfg.get("first_expert", 0)
     for e in held_experts(cfg):
         tok, slot = (idx == e).nonzero(as_tuple=True)
         if tok.numel():
-            y = _mlp(p, f"{pre}.experts.{e}", x[tok]) * w[tok, slot, None]
-            out.index_add_(0, tok, y)
+            y = (_mlp(p, f"{pre}.experts.{e}", x[tok]) if stacked is None
+                 else _fused_mlp(stacked[0][e - first], stacked[1][e - first],
+                                 x[tok]))
+            out.index_add_(0, tok, y * w[tok, slot, None])
     return out.view(shape)
 
 

@@ -249,10 +249,12 @@ def kda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     return torch.cat(out, 2), S
 
 
-def _causal_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """SiLU of the causal depthwise convolution: w (C, 1, W), x (B, T, C)
-    -> (B, T, C), y_t = sum_j w_j x_{t - W + 1 + j}."""
-    y = F.conv1d(F.pad(x.transpose(1, 2), (w.shape[-1] - 1, 0)), w,
+def _causal_conv(w: torch.Tensor, x: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
+    """SiLU of the causal depthwise convolution: w (C, 1, W), x (B, T, C),
+    bias (C,) or None -> (B, T, C), y_t = sum_j w_j x_{t - W + 1 + j}
+    (+ bias)."""
+    y = F.conv1d(F.pad(x.transpose(1, 2), (w.shape[-1] - 1, 0)), w, bias,
                  groups=w.shape[0])
     return F.silu(y).transpose(1, 2)
 

@@ -212,4 +212,7 @@ def mha(p: Params, x: torch.Tensor, num_heads: int,
 
 
 def param_count(params: Params) -> int:
-    return sum(x.numel() for x in tree_leaves(params))
+    """Values in the tree's leaves, a leaf that appears under several keys
+    (a tied embedding) once."""
+    return sum(x.numel() for x in {id(x): x for x in
+                                   tree_leaves(params)}.values())

@@ -32,8 +32,11 @@ deepseek_v2_lite, DeepSeek-V2-Lite at its published config
 share of it (535,060,992; models/deepseek_v2.py); kimi_linear_48b,
 Kimi-Linear-48B-A3B at its published config (49,122,681,728), and
 kimi_linear_shard, one expert-parallel stage of it (1,299,826,624;
-models/kimi_linear.py); each an OrderedDict under the Hugging Face key
-names.
+models/kimi_linear.py); granite_4_0_h_small, Granite-4.0-H-Small at its
+published config (32,207,337,984, the tied embedding once), and
+granite_4_0_h_small_shard, one expert-parallel stage of it
+(2,955,758,208; models/granite_hybrid.py); each an OrderedDict under the
+Hugging Face key names.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import torch
 from .. import cuda_lib
 from ..utils import threefry as tf
 from . import basic, convnets, deepseek_v2, transformers_zoo, graph_tabular
-from . import kimi_linear
+from . import granite_hybrid, kimi_linear
 from .layers import param_count
 
 
@@ -115,7 +118,10 @@ MODEL_NAMES = tuple(_REGISTRY)
 _PORT = {"deepseek_v2_lite": (deepseek_v2, deepseek_v2.LITE),
          "deepseek_v2_lite_shard": (deepseek_v2, deepseek_v2.LITE_SHARD),
          "kimi_linear_48b": (kimi_linear, kimi_linear.KIMI_48B),
-         "kimi_linear_shard": (kimi_linear, kimi_linear.SHARD)}
+         "kimi_linear_shard": (kimi_linear, kimi_linear.SHARD),
+         "granite_4_0_h_small": (granite_hybrid,
+                                 granite_hybrid.GRANITE_H_SMALL),
+         "granite_4_0_h_small_shard": (granite_hybrid, granite_hybrid.SHARD)}
 PORT_NAMES = tuple(_PORT)
 for _name, (_mod, _cfg) in _PORT.items():
     _REGISTRY[_name] = (

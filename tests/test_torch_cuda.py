@@ -37,7 +37,7 @@ import chip_smoke
 from fhe_fed_tpu_torch import bench, cuda_lib, CKKS
 from fhe_fed_tpu_torch import SelectivePolicy, fhe_fedavg
 from fhe_fed_tpu_torch.fed import api as fed_api, tree_average as TA
-from fhe_fed_tpu_torch.models import zoo
+from fhe_fed_tpu_torch.models import granite_hybrid, zoo
 from fhe_fed_tpu_torch.rns import primes
 from fhe_fed_tpu_torch.ntt import mxu, mxu_pallas, tables, pallas_ntt
 from fhe_fed_tpu_torch.ntt import ntt as ntt_mod
@@ -1388,6 +1388,115 @@ def test_tree_card_path_casts_only_what_it_cannot_read(dev, tree_dir):
     assert dict(TA.casts) == {"float16": 3, "float32": 3, "bfloat16": 1}
     for k in got:
         assert chip_smoke.same_bits(got[k], want[k]), k
+
+
+# Granite-4.0-H-Small's layout at a tiny width: Mamba-2, attention and
+# Mamba-2 layers, 6 experts held of 12 in stacked 3-d leaves, the tied
+# embedding under two keys.
+GRANITE_TINY = dict(
+    granite_hybrid.GRANITE_H_SMALL, hidden_size=64, num_attention_heads=4,
+    num_key_value_heads=2, mamba_n_heads=2, mamba_d_head=64,
+    mamba_d_state=16, intermediate_size=32, shared_intermediate_size=48,
+    num_local_experts=6, router_experts=12, num_experts_per_tok=3,
+    vocab_size=256, num_hidden_layers=3,
+    layer_types=["mamba", "attention", "mamba"])
+
+
+def test_tree_card_path_tied_bfloat16_stacked_experts(dev, tree_dir):
+    """Three tied bfloat16 state dicts with stacked expert leaves on the
+    card through fhe_fedavg at rate 0.1: bit for bit the flow over their
+    CPU copies (tied too) under a second helper of one seed; the gathered
+    buffer packed on the card, no leaf cast, the tied pair counted once a
+    client in `tree_average.aliases`, and its two outputs separate
+    buffers, each holding its own decrypted prefix."""
+    trees = [granite_hybrid.init(TF.key(seed, dev), GRANITE_TINY,
+                                 torch.bfloat16) for seed in (1, 2, 3)]
+    assert trees[0]["lm_head.weight"] is trees[0]["model.embed_tokens.weight"]
+    cpu = []
+    for t in trees:
+        c = collections.OrderedDict((k, v.cpu()) for k, v in t.items())
+        c["lm_head.weight"] = c["model.embed_tokens.weight"]
+        cpu.append(c)
+    hs = chip_smoke.tree_helpers(tree_dir, dev)
+    pol = SelectivePolicy(rate=0.1)
+    want = fhe_fedavg(hs[0], cpu, chip_smoke.API_WEIGHTS, pol)
+    TA.casts.clear()
+    TA.aliases.clear()
+    fed_api.staging.clear()
+    cuda_lib.launches.clear()
+    got = fhe_fedavg(hs[1], trees, chip_smoke.API_WEIGHTS, pol)
+    assert fed_api.staging == {"device": 1}
+    assert not TA.casts
+    assert dict(TA.aliases) == {"lm_head.weight": 3}
+    assert {n: cuda_lib.launches[n] for n in TA.NAMES} == dict.fromkeys(
+        TA.NAMES, 1)
+    assert list(got) == list(want) == list(trees[0])
+    for k in got:
+        assert got[k].shape == trees[0][k].shape
+        assert chip_smoke.same_bits(got[k], want[k]), k
+    head, emb = got["lm_head.weight"], got["model.embed_tokens.weight"]
+    assert head.data_ptr() != emb.data_ptr()
+    k = math.ceil(0.1 * head.numel())
+    assert torch.equal(head.reshape(-1)[k:], emb.reshape(-1)[k:])
+
+
+def test_tree_kernel_past_two_to_the_31_positions(dev):
+    """A bfloat16 cohort of 2,281,701,395 positions a client (leaves of
+    2^30 + 3, 2^30 + 5 and 2^27 + 11 values, the last wholly past 2^31 in
+    the output) at rate 0.1 on the card: the gathered prefixes, the
+    averaged remainders and the scattered prefixes at the start, the
+    prefix's end and the end of each leaf equal their plain values bit
+    for bit (~27 GB of card memory)."""
+    sizes = [2 ** 30 + 3, 2 ** 30 + 5, 2 ** 27 + 11]
+    gen = _gen(dev, 11)
+    leaves = [[torch.randn(n, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for n in sizes]
+              for _ in range(3)]
+    plan = TA.leaf_plan(sizes, ["a", "b", "c"], SelectivePolicy(rate=0.1))
+    c = TA.Cohort(plan, leaves, chip_smoke.API_WEIGHTS)
+    assert int(plan.out[-1]) > int(plan.out[2]) > 2 ** 31 and c.mode == 1
+    enc = TA.gather(c)
+    out = c.empty_output()
+    TA.average(c, out)
+    dec = torch.randn(int(plan.enc[-1]), generator=gen, device=dev)
+    TA.scatter(c, dec, out)
+    for i, n in enumerate(sizes):
+        k, e, o = (int(a[i]) for a in (plan.k, plan.enc, plan.out))
+        for j in (torch.arange(8), torch.arange(k - 4, k + 4),
+                  torch.arange(n - 8, n)):
+            j = j.to(dev)
+            pre, rest = j[j < k], j[j >= k]
+            for lv, row in zip(leaves, enc):
+                assert torch.equal(row[e + pre], lv[i][pre].float())
+            assert torch.equal(out[o + pre], dec[e + pre])
+            acc = torch.zeros(rest.numel(), dtype=torch.float64, device=dev)
+            for w, lv in zip(chip_smoke.API_WEIGHTS, leaves):
+                acc = acc + w * lv[i][rest].double()
+            assert chip_smoke.same_bits(out[o + rest], acc.float()), (i, j)
+
+
+def test_host_blocks_are_pinned_exact_and_reused(dev):
+    """fed/fedavg.py's exact-size page-locked blocks: a card tensor copies
+    into one, which CUDA reports as pinned; the block is handed out
+    again once every tensor on it is freed, and not before."""
+    import gc
+    from fhe_fed_tpu_torch.fed import fedavg as fedavg_mod
+    blocks = fedavg_mod.HostBlocks()
+    x = torch.randn(3, 1000, generator=_gen(dev, 4), device=dev)
+    a = blocks.empty(x.shape, x.dtype).copy_(x)
+    assert a.is_pinned() and torch.equal(a, x.cpu())
+    b = blocks.empty(x.shape, x.dtype)
+    assert b.data_ptr() != a.data_ptr()
+    free = blocks.free[x.numel() * 4]
+    row, ptr = a[1], a.data_ptr()
+    del a
+    gc.collect()
+    assert not free                      # the row still holds a's block
+    del row
+    gc.collect()
+    assert [block.ctypes.data for block in free] == [ptr]
+    c = blocks.empty(x.shape, x.dtype)
+    assert c.data_ptr() == ptr and not free and b.is_pinned()
 
 
 # The passes of csrc/rlwe_passes.cu at the paths' shapes: (case, leading
